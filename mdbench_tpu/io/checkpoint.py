@@ -3,8 +3,8 @@
 The reference has no mid-run checkpointing (SURVEY §5.4); its closest
 facility is the `-w` restartable `.in` atom file (atom.c:564-588). This
 module adds proper save/restore (positions + velocities + step + params
-fingerprint) via npz — cheap on TPU because state lives in a handful of
-dense arrays.
+fingerprint) via npz — cheap because state lives in a handful of dense
+arrays.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The reference bins atoms into a 3-D grid covering the box plus a ghost
 halo, with a fixed atoms-per-bin capacity and a resize loop
 (reference: src/verletlist/neighbor.c:64-184 setupNeighbor,
-neighbor.c:298-358 coord2bin/binatoms). TPU version: one argsort by bin
+neighbor.c:298-358 coord2bin/binatoms). Device version: one argsort by bin
 id + a ranked scatter produces the whole (nbins, capacity) cell table in
 a few fused XLA ops; capacity overflow raises a flag the host handles by
 growing and retracing (the analogue of the reference's resize loop).
@@ -112,8 +112,8 @@ def build_cells(grid: CellGrid, x: jnp.ndarray) -> CellList:
     kbits = max(int(nrows - 1).bit_length(), 1)
     if (grid.nbins + 1) << kbits < 2**32:
         # single packed uint32 key (bin << kbits | row): one plain sort
-        # instead of a variadic argsort — measured ~2x on TPU, and the
-        # row bits make the sort stable by construction
+        # instead of a variadic argsort, and the row bits make the sort
+        # stable by construction
         key = (
             ids.astype(jnp.uint32) << kbits
         ) | jnp.arange(nrows, dtype=jnp.uint32)
@@ -127,9 +127,8 @@ def build_cells(grid: CellGrid, x: jnp.ndarray) -> CellList:
         sorted_ids, jnp.arange(grid.nbins + 2, dtype=ids.dtype)
     ).astype(jnp.int32)
 
-    # Gather-form table build (NOT a scatter: the old
-    # cells.at[flat_pos].set(order) ran at the measured ~0.14 G elts/s
-    # scatter rate — ~2.5 ms of the 4.5 ms build_cells at 131k). After
+    # Gather-form table build (NOT a scatter of
+    # cells.at[flat_pos].set(order)). After
     # the sort, bin b's atoms are order[starts[b] : starts[b+1]], so
     # slot (b, r) is a pure GATHER of order at starts[b] + r, masked by
     # the per-bin count — one (nbins+1, capacity) element gather.

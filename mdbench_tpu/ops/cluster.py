@@ -1,22 +1,22 @@
-"""GROMACS-style MxN cluster machinery, re-dimensioned for the TPU.
+"""GROMACS-style MxN cluster machinery, re-dimensioned for JAX.
 
 Reference scheme (src/clusterpair/): atoms grouped into M-atom i-clusters
 and N-atom j-clusters sized to the SIMD width, bounding-box pruned
 cluster-pair lists, interaction-mask self-exclusion
 (neighbor.c:663-1021, force.h:34-95).
 
-TPU re-derivation (SURVEY §2.5): M = N = 8 atoms per cluster — 8 matches
-the f32 sublane count, and a group of G i-clusters shares one j-list so
-the force kernel processes (8 i-atoms) x (16 j-clusters = 128 lanes)
-VPU tiles with j loads amortized over the group (ops/pallas/lj_cluster).
-Differences from the reference, chosen deliberately for the hardware:
+Re-derivation (SURVEY §2.5): M = 8 atoms per i-cluster, 16 per
+j-cluster (two i-clusters). A group of G i-clusters shares one candidate
+j-list built by bbox pruning; exact per-unit lists are derived from it
+(derive_ilists) and feed the force kernels (ops/pallas/lj_cluster).
+Differences from the reference, chosen deliberately for array code:
 
 - clusters are built by one (column, z) sort over all atoms — the
   z-per-bin selection sort (neighbor.c:599-661) becomes a single
   lax.sort, and clusters are 8 consecutive atoms of a column;
 - exclusion masks: the reference precomputes diagonal bitmask tables
-  (atom.c:463-601). On TPU a mask is one vector compare, so the kernel
-  tests global atom ids directly — no tables, no masked/unmasked list
+  (atom.c:463-601). Here a mask is one vector compare (the self pair
+  sits at rsq == 0), so there are no tables and no masked/unmasked list
   partition (neighbor.c:374-387);
 - pair pruning uses bounding-box distance only (the reference adds an
   exact MxN check, neighbor.c:262-436); bbox-only is conservative.
@@ -36,9 +36,9 @@ import numpy as np
 
 from mdbench_tpu.state import SENTINEL_COORD
 
-M = 8  # atoms per i-cluster == f32 sublanes
+M = 8  # atoms per i-cluster
 N_J = 16  # atoms per j-cluster (M = N/2 geometry, reference force.h:74-91)
-TILE_J = 8  # j-clusters per 128-lane kernel tile
+TILE_J = 8  # j16-clusters per group-window tile (ranges, stats)
 
 
 class ClusterGrid(NamedTuple):
@@ -88,9 +88,9 @@ def make_cluster_grid(
     # spaced in z (16 consecutive z-sorted atoms each), so cut-sized z
     # bins hold ~1.2 j16 at capacity 8 — the candidate fetch then reads
     # ~7x more slots than clusters. Size z bins for ~4-5 j16 mean
-    # occupancy instead: same coverage, ~3x fewer fetched rows, lanes,
-    # and sort width in build_cluster_pairs (measured on the 131k
-    # workload; the stencil window below adapts automatically).
+    # occupancy instead: same coverage, ~3x fewer fetched rows and a
+    # narrower sort in build_cluster_pairs (the stencil window below
+    # adapts automatically).
     zbin_occ = 4.5  # target mean j16 per z bin
     sz_t = max(zbin_occ * N_J / (rho * sx * sy), 1e-6)
     nz = max(1, int(round(prd[2] / sz_t)))
@@ -154,10 +154,10 @@ class Clusters(NamedTuple):
     bbox: jnp.ndarray  # (C_total, 8)
     atom_id: jnp.ndarray  # (C_local, 8) int32 — original atom row, or -1 pad
     inv_map: jnp.ndarray  # (nlocal,) int32 — atom row -> cluster*8+slot
-    # (the inverse of atom_id; lets the flatten step be a GATHER — a
-    # column scatter costs ~50 ms at 131k atoms on TPU)
+    # (the inverse of atom_id; lets the flatten step be a GATHER
+    # instead of a column scatter)
     tc: jnp.ndarray  # (C_total, 8) atom types, FLOAT-encoded (0.0..T-1)
-    # so type planes ride the same packed coordinate gathers/VPU compares
+    # so type planes ride the same packed coordinate gathers/compares
     # (reference cl_type, clusterpair/atom.h:36; EXPLICIT_TYPES tables
     # atom.c:78-92)
 
@@ -172,8 +172,8 @@ class ClusterHalo(NamedTuple):
 
 
 class ClusterPairList(NamedTuple):
-    """Per-group shared j-cluster list (NG, 1, L) for the Pallas kernel
-    (SMEM-blocked), z-sorted and padded with the sentinel cluster id.
+    """Per-group shared j-cluster list (NG, 1, L), z-sorted and padded
+    with the sentinel cluster id.
     `ranges` packs per-member tile windows: [0:G) start tile, [G:2G) end
     tile, [2G] the group's tile-loop bound.
 
@@ -181,9 +181,8 @@ class ClusterPairList(NamedTuple):
     None): exact per-i-unit j16 lists (an i-unit = `share` consecutive
     i-clusters) derived from the group list by the exact atom-distance
     check (the reference's atomDistanceInRange, neighbor.c:262-436).
-    Measured on the 131k workload these are 3-8x tighter than group
-    windows (mean 26 / max 31 j16 per i-cluster vs ~42 windowed), which
-    is what sets the force kernel's pair count."""
+    They are several times tighter than the group windows, which is
+    what sets the force kernel's pair count."""
 
     jlist: jnp.ndarray  # (NG, 1, L) int32
     ranges: jnp.ndarray  # (NG, 1, 2*G+1) int32
@@ -192,13 +191,6 @@ class ClusterPairList(NamedTuple):
     ijlist: jnp.ndarray | None = None  # (NIC/share, icap) int32 j16 ids
     nji: jnp.ndarray | None = None  # (NIC/share,) int32
     iovf: jnp.ndarray | None = None  # () bool — nji > icap anywhere
-    # bucketed-force maps (attach_bucket_maps; kernel="ilist_pl" with
-    # calibrated buckets): units sorted by list length so each bucket
-    # runs a capacity-matched kernel (heated nji is a tight bulk with a
-    # low tail — mean 26 vs flat cap 48 wasted ~45% of the pair budget)
-    bijlist: jnp.ndarray | None = None  # (total_units, icap) permuted
-    bcrows: jnp.ndarray | None = None  # (total_units*share,) xi rows
-    binv: jnp.ndarray | None = None  # (NIC,) output row inverse map
 
 
 def _zbits(z):
@@ -387,9 +379,7 @@ def setup_cluster_pbc(
     # compaction by ONE single-operand sort of the packed candidate
     # index (cluster*26 + shift): valid candidates keep their index
     # (order-preserving), dropped ones sort to the tail as the sentinel
-    # value. A sort of 254k ints costs ~0.1 ms where the cumsum+scatter
-    # it replaces cost ~1.5 ms (scatters run at ~0.14G elts/s; this
-    # replaced FOUR scatters in round 1 and the last one now).
+    # value, in place of a cumsum + scatter.
     cand = jnp.arange(n16 * 26, dtype=jnp.int32)
     sentinel16 = clusters.xc.shape[0] // 2 - 1
     packed = jnp.sort(
@@ -489,7 +479,7 @@ def bin_clusters(grid: ClusterGrid, bb: jnp.ndarray):
     sorted_ids = ids[order]
     # rank within each equal-id run via boundary flags + running max —
     # a searchsorted here lowers to a sequential binary-search while
-    # loop (~1.2 ms at 131k); this is three vector ops
+    # loop; this is three vector ops
     iota = jnp.arange(nrows, dtype=jnp.int32)
     newrun = jnp.concatenate(
         [jnp.ones((1,), bool), sorted_ids[1:] != sorted_ids[:-1]]
@@ -508,21 +498,19 @@ def bin_clusters(grid: ClusterGrid, bb: jnp.ndarray):
     cells = jnp.full(((grid.nbins + 1) * grid.bin_capacity,), sentinel, jnp.int32)
     cells = cells.at[pos].set(order.astype(jnp.int32), mode="drop")
     # bbox table aligned with `cells`, built by GATHER through the id
-    # table (an 8-wide row scatter here measured ~2 ms at 131k; the
-    # gather is ~free). Empty slots hold the sentinel row's empty bbox
+    # table instead of an 8-wide row scatter. Empty slots hold the sentinel row's empty bbox
     # (lo=+1e30, hi=-1e30), which the gap test excludes without an id
     # check. The cluster ID rides in pad slot 6 of each bbox row
     # (float-exact below 2^24), so the pair search's candidate fetch is
-    # ONE by-bin-row gather instead of two (ids + bboxes were ~1.6 ms
-    # each at 131k — row gathers are issue-bound). Rows are stored
+    # ONE by-bin-row gather instead of two. Rows are stored
     # COMPONENT-MAJOR ((nbins+1, 8, cap): all xlo of the bin's slots,
-    # then all xhi, ...) so the pair search extracts lane-contiguous
-    # component planes with plain slices — transposing the 4.7 MB table
-    # once here replaces relayouting the ~70 MB gathered candidate
+    # then all xhi, ...) so the pair search extracts contiguous
+    # component planes with plain slices — transposing the table once
+    # here replaces relayouting the much larger gathered candidate
     # stream every rebuild. The barrier forces the table to
     # MATERIALIZE: without it XLA composes this gather with
     # build_cluster_pairs' bb_cells[cand_bins] gather into per-cluster
-    # row gathers — 8x the gather rows, ~+10 ms/rebuild.
+    # row gathers — 8x the gather rows.
     bb_id = bb.at[:, 6].set(jnp.arange(nrows, dtype=bb.dtype))
     bb_cells = jax.lax.optimization_barrier(
         jnp.transpose(
@@ -550,14 +538,11 @@ def build_cluster_pairs(
 ) -> ClusterPairList:
     """Shared j16-cluster list per group of `group` consecutive
     i-clusters (reference buildNeighbor, neighbor.c:176-436, re-shaped:
-    per-group z-sorted union lists with per-i-cluster tile windows feed
-    the 8x128 kernel; bbox distance is the only prune).
+    per-group z-sorted union lists with per-i-cluster tile windows;
+    bbox distance is the only prune).
 
-    Compaction is a bitonic SORT, deliberately: a cumsum + dynamic-index
-    scatter looks cheaper but measured ~7x SLOWER in context on TPU
-    (dynamic-index scatters run at ~0.14G updates/s; the earlier probe
-    that said otherwise had constant indices, which XLA folds into a
-    different lowering entirely)."""
+    Compaction is a bitonic SORT, in place of a cumsum + dynamic-index
+    scatter."""
     ng = n_clusters_pad // group
     dims = grid.bin_dims
     size = grid.bin_size
@@ -636,16 +621,14 @@ def build_cluster_pairs(
         nwin = offs.shape[0]
 
         # bbox+id gather by FLAT BIN ROW (8*cap floats, component-major
-        # within the row): flat rows gather at ~1.5 ns/row, and because
-        # the table is pre-transposed, component planes come out as
-        # lane-CONTIGUOUS slices — no per-candidate relayout at all
-        # (the earlier 4-D transpose of the gathered stream was ~1.2 ms
-        # per rebuild). The id rides in pad slot 6, so no separate id
-        # gather. End state: components planar on (chunk, 8, ncand) —
-        # the gap test runs at full lane occupancy.
+        # within the row): because the table is pre-transposed,
+        # component planes come out as CONTIGUOUS slices — no
+        # per-candidate relayout at all. The id rides in pad slot 6, so
+        # no separate id gather. End state: components planar on
+        # (chunk, 8, ncand).
         g = bb_cells.reshape(-1, 8 * cap)[cand_bins]
 
-        def comp(c):  # lane-contiguous component plane (chunk, ncand)
+        def comp(c):  # contiguous component plane (chunk, ncand)
             return g[:, :, c * cap : (c + 1) * cap].reshape(
                 chunk, nwin * cap
             )
@@ -666,12 +649,10 @@ def build_cluster_pairs(
         # Sort kept candidates by bbox zmin: each i-cluster's reachable
         # j's then form ONE contiguous segment of the group list, so the
         # kernel can skip tiles outside a per-i-cluster [start, end)
-        # range — per-cluster pruning with group-amortized loads (the
-        # TPU answer to the reference's per-cluster lists + imasks).
+        # range — per-cluster pruning with group-amortized loads.
         # zmax rides along so the start bound can be exact (below).
         # With need_ranges=False (exact-list kernels ignore windows),
-        # zmax stays out of the sort: each operand costs ~30% of the
-        # 6k-wide bitonic.
+        # zmax stays out of the sort: every operand widens the bitonic.
         cand = comp(6).astype(jnp.int32)  # ids from pad slot 6
         zmin_j = jnp.where(keep, zmin_raw, SENTINEL_COORD)
         # is_stable=False everywhere: stability adds an iota operand to
@@ -714,12 +695,12 @@ def build_cluster_pairs(
         zs = zs[:, :list_capacity]
         zx_sorted = zx_sorted[:, :list_capacity]
 
-        # per-member tile ranges (8 j16-clusters = 128 atoms per kernel
+        # per-member tile ranges (8 j16-clusters = 128 atoms per
         # tile). j needed iff zmax_j >= zmin_i - c and zmin_j <= zmax_i+c.
         # end is exact on the sorted zmin; for start, zmax is not monotone
         # in zmin order, but its running max is — so counting positions
         # whose PREFIX max zmax stays below the bound is exact too (the
-        # TPU equivalent of the reference's exact atomDistanceInRange
+        # counterpart of the reference's exact atomDistanceInRange
         # prune, neighbor.c:262-436, at j-cluster granularity; replaces
         # the old conservative 2*slop_z padding on the start side).
         rmax = jax.lax.cummax(zx_sorted, axis=1)
@@ -775,21 +756,13 @@ def derive_ilists(
     (share*8-atom i-unit) x (16-atom j-cluster) granularity, against
     cutneigh so the list survives a reneighbor interval).
 
-    (An nj-sorted bucketed variant that scanned quantile-matched list
-    widths per group bucket was measured SLOWER on the 131k workload —
-    the permutation gathers cost more than the ~25% narrower scan
-    saved — and was removed; see PERF.md round 3.)
-
-    This feeds the `ilist` force kernels: measured on TPU, the force
-    path splits between the packed row GATHER (row-issue-bound,
-    ~400M rows/s regardless of width) and the VPU math (bound by PADDED
-    pair count). `share` consecutive z-sorted i-clusters sharing one
-    exact list trades those against each other: measured on the 131k
-    workload share=2 HALVES gather rows at an *identical* padded-pair
-    count (union max 39 vs per-i cap 40), because z-adjacent i-clusters
-    overlap almost completely in neighbors. share=4 quarters rows for
-    +40% pairs. The exact check costs one force-equivalent pass per
-    rebuild — amortized over the reneighbor interval.
+    This feeds the exact-list force kernels (ilist_pl, ilist).
+    `share` consecutive z-sorted i-clusters sharing one exact list
+    trades list rows against padded pairs: share=2 halves the rows at a
+    nearly identical padded-pair count, because z-adjacent i-clusters
+    overlap almost completely in neighbors. The exact check costs one
+    force-equivalent pass per rebuild — amortized over the reneighbor
+    interval.
 
     Kept entries preserve the group list's z-sorted order (compaction is
     a stable sort on the drop flag). Dropped/padding slots hold the
@@ -814,7 +787,7 @@ def derive_ilists(
         [clusters.xc.reshape(cjn, 16), clusters.yc.reshape(cjn, 16),
          clusters.zc.reshape(cjn, 16)],
         axis=1,
-    )  # row gathers are issue-bound: one 48-wide fetch, not three
+    )  # one 48-wide row fetch, not three
     sentinel16 = cjn - 1
     jl_all = pairs.jlist.reshape(ng, L)
     nj_all = pairs.nj
@@ -830,32 +803,12 @@ def derive_ilists(
             gi = g0 + jnp.arange(chunk, dtype=jnp.int32)
             gsafe = jnp.where(gi < ng, gi, 0)
             jl = jl_all[gsafe][:, :Lk]  # (chunk, Lk)
-            # lane-layout note: j-atoms are FLATTENED onto the lane axis
-            # (Lk*16 lanes) and i-atoms sit on sublanes — the naive
-            # (..., Lk, 16) shape leaves 16 of 128 lanes live and
-            # measured 16 ms at 131k; this layout + two-stage min runs
-            # the same math at full lane occupancy.
-            from mdbench_tpu.ops.pallas.lj_cluster import ILIST_GATHER
-
-            if ILIST_GATHER == "fused":
-                # layout-fused gather: offset dims (3, 16) land at
-                # output positions (1, 3) around the (chunk, Lk) index
-                # batch — the planar layout with zero relayout copies
-                dn = jax.lax.GatherDimensionNumbers(
-                    offset_dims=(1, 3), collapsed_slice_dims=(0,),
-                    start_index_map=(0,),
-                )
-                pl3 = jax.lax.gather(
-                    packed48.reshape(cjn, 3, 16), jl[:, :, None], dn,
-                    (1, 3, 16),
-                ).reshape(chunk, 3, 1, 1, Lk * 16)
-            else:
-                # plane split = the measured-fast 4-D transpose of one
-                # packed 48-wide row gather
-                rows = packed48[jl]  # (chunk, Lk, 48)
-                pl3 = jnp.transpose(
-                    rows.reshape(chunk, Lk, 3, 16), (0, 2, 1, 3)
-                ).reshape(chunk, 3, 1, 1, Lk * 16)
+            # j-atoms are flattened onto the minor axis (Lk*16) and the
+            # per-j16 minimum is a two-stage min over it
+            rows = packed48[jl]  # (chunk, Lk, 48)
+            pl3 = jnp.transpose(
+                rows.reshape(chunk, Lk, 3, 16), (0, 2, 1, 3)
+            ).reshape(chunk, 3, 1, 1, Lk * 16)
             xj = pl3[:, 0]
             yj = pl3[:, 1]
             zj = pl3[:, 2]
@@ -951,8 +904,7 @@ def derive_ilists(
             nji = jnp.sum(keep, axis=2).astype(jnp.int32)
             # stable compaction: kept entries first, z order kept. A
             # bitonic sort on a single packed key (drop-flag * Lk +
-            # position) — NOT a cumsum + scatter, which is ~4x slower
-            # in context on TPU (dynamic-index scatter lowering)
+            # position) — in place of a cumsum + dynamic-index scatter
             key = jnp.where(keep, lpos, Lk + lpos)
             jlb = jnp.broadcast_to(jl[:, None, :], keep.shape)
             # keys are distinct positions, so an unstable sort is
@@ -985,130 +937,6 @@ def derive_ilists(
     return pairs._replace(
         ijlist=ijlist, nji=nji, iovf=jnp.any(nji > icap)
     )
-
-
-def plan_capacity_buckets(nji: "np.ndarray", cap: int, share: int,
-                          margin: int = 4, zero_tier: bool = False):
-    """Choose capacity buckets for an exact-list force path from the
-    observed list-length distribution (used by both the cluster-scheme
-    ilist path and the verlet rowlist path). Candidate caps are EVERY
-    pad8 value below `cap` (the kernel's W = cap*16 lanes must tile
-    128, so 8 is the cap granularity; tiers that catch < one size
-    granule of units are dropped, so the tier count stays small — the
-    131k LJ distribution yields 3-4 kernels). `margin` absorbs the
-    cold-lattice -> heated drift of the distribution the plan was
-    calibrated on (runtime bucket MEMBERSHIP is argsort-adaptive per
-    rebuild; only the static sizes must keep holding, checked by bovf
-    -> grow-retry). `zero_tier` adds a cap-0 bucket for structurally
-    empty units (capacity-padding units past nlocal hold sentinel
-    coordinates and ALWAYS have empty lists — at 131k they are 16% of
-    the units and their force kernel is skipped entirely). Returns
-    (sizes, caps) or None when bucketing can't pay (small boxes: the
-    per-step permutation gathers cost ~0.3 ms at 131k)."""
-    nu = nji.shape[0]
-    if nu < 4096:
-        return None
-
-    # bucket-size granularity: n_k * share clusters must tile into
-    # 16-cluster kernel units AND 8-unit revolving output blocks
-    gran = max(128 // share, 8)
-    srt = np.sort(nji) + margin
-    cand = list(range(8, cap, 8))
-    if zero_tier:
-        # exact zeros only (no margin): always-empty padding units
-        cand = [0] + cand
-    sizes, caps = [], []
-    used = 0
-    for c_k in cand:
-        fit = (np.sort(nji) <= 0) if c_k == 0 else (srt <= c_k)
-        n_fit = int(fit.sum() * 0.99) // gran * gran - used
-        if n_fit >= gran:
-            sizes.append(n_fit)
-            caps.append(c_k)
-            used += n_fit
-    if not sizes:
-        return None
-    n_c = max(gran, (nu - used + gran - 1) // gran * gran)
-    sizes.append(n_c)
-    caps.append(cap)
-    return tuple(sizes), tuple(caps)
-
-
-def attach_bucket_maps(
-    pairs: ClusterPairList,
-    n_clusters_pad: int,
-    share: int,
-    total_rows: int,  # xc row count (dummy units point at the sentinel pair)
-    sizes,  # static bucket sizes in units (each a multiple of 64)
-    caps,  # static bucket list capacities (ascending, pad8)
-) -> ClusterPairList:
-    """Sort i-units by exact list length and materialize the per-rebuild
-    maps the bucketed force path consumes each step: the permuted list
-    table, the permuted xi cluster-row indices, and the output-inverse
-    row map. Assignment is runtime-adaptive (argsort of nji), so bucket
-    membership follows the thermal nji drift; overflow = the largest
-    nji inside a bucket exceeding its cap (folded into iovf -> the
-    engine grows caps and retries)."""
-    bijlist, bcrows, binv, bovf = bucket_maps_core(
-        pairs.ijlist, pairs.nji, n_clusters_pad, share, total_rows,
-        sizes, caps,
-    )
-    return pairs._replace(
-        bijlist=bijlist, bcrows=bcrows, binv=binv,
-        iovf=pairs.iovf | bovf,
-    )
-
-
-def bucket_maps_core(
-    ijlist: jnp.ndarray,  # (nu, icap) int32 exact j16 lists
-    nji: jnp.ndarray,  # (nu,) int32
-    n_clusters_pad: int,
-    share: int,
-    total_rows: int,
-    sizes,
-    caps,
-):
-    """The layout-agnostic core of attach_bucket_maps — also drives the
-    verlet rowlist path's bucketed force (a 16-atom atom-order row
-    plays the j16 role there). Returns (bijlist, bcrows, binv, bovf)."""
-    nu, icap = ijlist.shape
-    total = int(sum(sizes))
-    assert total >= nu
-    order = jnp.argsort(nji).astype(jnp.int32)  # ascending
-    if total > nu:
-        order = jnp.concatenate(
-            [order, jnp.full((total - nu,), nu, jnp.int32)]
-        )
-    sent16 = total_rows // 2 - 1
-    ijl_ext = jnp.concatenate(
-        [ijlist, jnp.full((1, icap), sent16, jnp.int32)], axis=0
-    )
-    bijlist = ijl_ext[order]
-    # xi rows: unit u -> cluster rows [u*share, (u+1)*share); the dummy
-    # unit reads the global sentinel pair (last two rows)
-    crow0 = jnp.where(order < nu, order * share, total_rows - share)
-    bcrows = (
-        crow0[:, None] + jnp.arange(share, dtype=jnp.int32)[None, :]
-    ).reshape(-1)
-    # inverse: output cluster row c lives at permuted position
-    # inv_unit[c // share] * share + c % share
-    inv_u = jnp.zeros((nu + 1,), jnp.int32).at[order].set(
-        jnp.arange(total, dtype=jnp.int32), mode="drop"
-    )
-    c = jnp.arange(n_clusters_pad, dtype=jnp.int32)
-    binv = inv_u[c // share] * share + c % share
-    # per-bucket capacity check on the sorted lengths (dummy units have
-    # length 0)
-    nji_ext = jnp.concatenate([nji, jnp.zeros((1,), nji.dtype)])
-    nji_sorted = nji_ext[order[:total]]
-    bovf = jnp.asarray(False)
-    off = 0
-    for n_k, c_k in zip(sizes, caps):
-        last = min(off + n_k, nu) - 1
-        if last >= off:
-            bovf = bovf | (nji_sorted[last] > c_k)
-        off += n_k
-    return bijlist, bcrows, binv, bovf
 
 
 def refresh_pair_ranges(

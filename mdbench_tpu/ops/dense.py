@@ -3,8 +3,8 @@
 The reference validates optimized kernels against a scalar reference
 kernel (USE_REFERENCE_VERSION, src/clusterpair/force_lj.c:47-165). Our
 analogue is an all-pairs minimum-image kernel: exact for cutoff < box/2,
-independent of any neighbor-list machinery, and cheap enough on TPU for
-boxes up to ~10^4 atoms. Every list-based kernel is unit-tested against
+independent of any neighbor-list machinery, and cheap enough for boxes
+up to ~10^4 atoms. Every list-based kernel is unit-tested against
 this module (see tests/).
 """
 

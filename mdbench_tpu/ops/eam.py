@@ -7,7 +7,7 @@ border_map (the dependency that forces two passes, force_eam.c:117-120).
 Pass 2: pair forces from rhor' / z2r splines:
   phi = z2/r; psip = fp_i*rhoip + fp_j*rhoip + phip; F = -psip/r.
 
-TPU shape: spline lookups are row gathers of (n+1, 7) tables by the
+Device shape: spline lookups are row gathers of (n+1, 7) tables by the
 (N, K) grid index; all arithmetic is planar (N, K). The clusterpair
 reference never finished EAM (force_eam.c is stubbed out, SURVEY §2.3);
 here EAM runs on the verlet path, matching that reality.
@@ -24,9 +24,8 @@ class EamDevice(NamedTuple):
     """Device-resident spline tables.
 
     rhor and z2r are indexed by the SAME r-grid index m, so the force
-    path gathers them as one packed (nr+1, 14) row table — per-pair row
-    gathers are issue-bound (~400M rows/s, PERF.md lesson 1), so one
-    14-wide gather costs half of two 7-wide ones."""
+    path gathers them as one packed (nr+1, 14) row table: one gather
+    per pair instead of two."""
 
     rhor: jnp.ndarray  # (nr+1, 7)
     frho: jnp.ndarray  # (nrho+1, 7)
@@ -55,15 +54,11 @@ class EamDevice(NamedTuple):
 def use_poly_eval(params) -> bool:
     """Resolve the eam_eval axis: "poly" forces the gather-free
     polynomial pair evaluation, "spline" forces the reference-exact
-    gathered splines, "auto" = poly on TPU SP runs (the fast axis),
-    spline otherwise (the parity axis)."""
-    import jax
+    gathered splines, "auto" = poly on accelerator SP runs (the fast
+    axis), spline otherwise (the parity axis)."""
+    from mdbench_tpu.backend import resolve_eam_eval
 
-    return params.eam_eval == "poly" or (
-        params.eam_eval == "auto"
-        and params.precision == "sp"
-        and jax.default_backend() == "tpu"
-    )
+    return resolve_eam_eval(params.eam_eval, params.precision) == "poly"
 
 
 def _grid_index(r_or_rho, rd, n):
@@ -110,8 +105,7 @@ def compute_force_eam(
     m, p = _grid_index(r, eam.rdr, eam.nr)
 
     # ONE packed row gather serves both passes: rhor and z2r share the
-    # index m, and per-pair gathers are row-issue-bound, so [rhor|z2r]
-    # rows at 14 wide cost the same as 7 wide (PERF.md lesson 1). The
+    # index m, so one 14-wide [rhor|z2r] row replaces two. The
     # four spline values are derived immediately so only (N, K) planes
     # stay live across the fp exchange, not the (N, K, 14) rows.
     rows = eam.rz_packed[m]  # (N, K, 14)
@@ -176,15 +170,15 @@ def compute_force_eam_poly(
     fp_exchange=None,
 ):
     """Gather-free-per-pair EAM force twin of compute_force_eam: the
-    rhor/z2r spline lookups (a per-pair row gather — the issue-bound
-    op class, PERF.md lesson 1) are replaced by global polynomial
+    rhor/z2r spline lookups (a per-pair row gather) are replaced by
+    global polynomial
     evaluation in-register (models/eam_tables.fit_eam_poly):
 
       pass 1: rho_i = sum dens(r_ij)
       pass 2: fpair = -((fp_i + fp_j) * g1(r) + g2(r))
 
     identical force law (the 1/r chain is folded into g1/g2), ~1e-6
-    function accuracy — the SP/TPU fast axis. frho (per-ATOM, one
+    function accuracy — the SP accelerator axis. frho (per-ATOM, one
     cheap gather) stays on the exact spline. Same two-pass structure
     and fp_exchange contract as compute_force_eam
     (reference force_eam.c:20-231)."""

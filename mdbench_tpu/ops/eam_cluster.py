@@ -2,14 +2,13 @@
 ghost-fp refresh between them.
 
 The reference never finished clusterpair EAM (its force_eam.c:20-37 is
-a dead stub); this is the TPU-native completion of that axis: the same
+a dead stub); this is a completion of that axis: the same
 exact per-i-unit j16 lists the LJ fast path uses (ops/cluster.
 derive_ilists), the verlet EAM's two-pass dataflow (ops/eam.
 compute_force_eam, reference verletlist/force_eam.c:20-231), and the
 gather-free polynomial pair evaluation (models/eam_tables.fit_eam_poly)
 — so the only per-pair memory traffic is two packed row gathers per
-step (48-wide coords for pass 1, 64-wide [x|y|z|fp] for pass 2), both
-at the issue-bound row budget the LJ kernel already pays once.
+step (48-wide coords for pass 1, 64-wide [x|y|z|fp] for pass 2).
 
 Pass 1: rho_i = sum_j dens(r_ij);  fp_i = F'(rho_i) via the exact
         per-ATOM frho spline (one cheap row gather per atom).

@@ -1,7 +1,7 @@
 """Velocity-Verlet integration and PBC position wrap.
 
 Reference: src/verletlist/integrate.c:21-40 (split Verlet) and
-src/verletlist/pbc.c:59-84 (`updateAtomsPbc` box wrap). On TPU these are
+src/verletlist/pbc.c:59-84 (`updateAtomsPbc` box wrap). These are
 trivially fused element-wise ops inside the jitted step scan.
 """
 

@@ -3,21 +3,19 @@
 Pair math matches the reference exactly (src/verletlist/force_lj.c:69-75):
   sr2 = 1/rsq; sr6 = sr2^3 * sigma6; F = 48*eps*sr6*(sr6-0.5)*sr2.
 
-TPU layout note: all intermediates are PLANAR (N, K) arrays per
-coordinate. A fused (N, K, 3) tensor would be tiled with its minor
-dimension padded 3 -> 128 lanes on TPU — a 42x memory blowup — so the
-single row-gather result is immediately split into coordinate planes and
-every later op stays (N, K). The one gather of (R, 3) rows is the only
-irregular access; everything else is dense VPU work.
+Layout note: all intermediates are PLANAR (N, K) arrays per coordinate
+— the single row-gather result is immediately split into coordinate
+planes and every later op stays (N, K), so no op carries a minor
+dimension of 3. The one gather of (R, 3) rows is the only irregular
+access; everything else is dense elementwise work.
 
-Full-neighbor (reference force_lj.c:14-105): gather -> compute -> lane
+Full-neighbor (reference force_lj.c:14-105): gather -> compute -> row
 reduce; no scatter at all.
 
 Half-neighbor (force_lj.c:107-198): adds the Newton third-law update
 f[j] -= f_pair for local j (ghost j skipped, force_lj.c:176). The
 reference's benign OpenMP race becomes a deterministic scatter-add
-(SURVEY §5.2); on TPU the scatter usually makes half lists slower than
-full — both kept, as in the reference (param.half_neigh).
+(SURVEY §5.2); both kept, as in the reference (param.half_neigh).
 """
 
 from __future__ import annotations

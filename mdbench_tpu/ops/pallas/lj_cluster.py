@@ -1,27 +1,20 @@
-"""Pallas TPU LJ force kernel over cluster-pair lists — the flagship
-compute kernel (replaces the reference's AVX Simd4xN/Simd2xNN and CUDA
-kernels, src/clusterpair/force_lj.c:167-1199, forceCuda.cu:190-262).
+"""LJ force over cluster-pair lists: the exact-list GPU kernel (Pallas
+through Triton) and its plain-XLA twins (reference analogues: the
+Simd4xN/Simd2xNN and CUDA kernels, src/clusterpair/force_lj.c:167-1199,
+forceCuda.cu:190-262).
 
-Shape mapping (SURVEY §2.5): one VPU tile = (8 sublanes = the 8 atoms of
-an i-cluster) x (128 lanes = 16 j-clusters x 8 atoms). Two kernel
-families survive the round-3 hardware A/B (PERF.md; the dynamic-slice
-and MXU-reduction twins measured 6.2 / 12.2 ms vs stream 5.3 and ilist
-2.3-2.8 at 131k and were deleted):
-- ilist (default): exact per-i-unit lists + single-pass straight-line
-  kernel — every operand pre-gathered planar by XLA, zero in-kernel
-  dynamic slices, each pair tile computed once;
-- stream: group-shared z-windowed lists + per-member tile-range
-  skipping (used by the multi-chip domain engine and the stub).
-
-Layout rules learned the hard way (all enforced below):
-- no array with a materialized minor dim < 128 leaves the kernel: the
-  force output is (ng/8, 8, 128) written by revisiting one block across
-  8 consecutive grid steps — zero tile padding;
-- the per-group lane reduction sum_l acc[s, l] -> (1, 128) is a
-  dot_general contracting the rhs LANE dim (an MXU rhs-transposed
-  matmul); a (128,1)->(1,128) reshape/transpose is not lowerable;
-- sublane->lane data movement happens only through static lane-offset
-  stores into (1, 128) scratch rows.
+- ``lj_cluster_force_ilist_gpu``: one program per i-unit (``share``
+  i-clusters = share*8 i-atoms). It loops over that unit's own exact
+  j16 list, bounded by the unit's real length, loads the j-coordinates
+  by index straight from the coordinate planes (which stay in L2), and
+  keeps the per-atom force sums in registers until one store. This is
+  the GROMACS nbnxm GPU kernel's shape; the fusion XLA cannot do is
+  never writing the gathered (nu, icap, 48) j-tiles to memory.
+- ``lj_cluster_force_xla_ilist``: the same exact lists as one fused XLA
+  gather + elementwise + reduce. CPU path, reference for the kernel,
+  typed (EXPLICIT_TYPES) path.
+- ``lj_cluster_force_xla``: group-shared lists (kernel="xla").
+- ``lj_cluster_force_xla_half``: Newton half lists.
 
 Self/diagonal exclusion: the reference precomputes interaction-mask
 tables (atom.c:463-601). Here the only id-equal pairs are an atom
@@ -42,240 +35,14 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
-GROUP = 16  # i-clusters per shared j-list; GROUP*8 = 128 output lanes
-
-
-def _kernel_stream(
-    rg_ref, xj_ref, yj_ref, zj_ref, xi_ref, yi_ref, zi_ref,
-    *rest,
-    nslab: int, cutforcesq: float, sigma6: float, epsilon: float,
-    approx_rcp: bool, tables=None,
-):
-    """Streaming variant: every operand arrives as a pipelined BlockSpec
-    DMA and the slab loop is statically unrolled — the kernel issues ZERO
-    scalar-core dynamic slices. Round-1 decomposition (PERF.md) showed
-    the old kernel spent 3.5 of 5.3 ms on serialized dynamic-slice
-    address issue; streaming moves j-tile assembly to one XLA gather per
-    step (repack_jtiles) and lets the Pallas pipeline hide the loads.
-
-    tables (static): None for single-type, else (eps, sig6, cutsq) nested
-    float tuples indexed [ti][tj] (reference EXPLICIT_TYPES per-type-pair
-    tables, clusterpair/atom.c:78-92). Typed runs add tj_ref/ti_ref
-    operands; per-slab the j-side table rows E_a[l] = tab[a][tj_l] are
-    assembled once (T^2 cheap (1,128) selects), and per tile the i-side
-    mixes them with T (8,128) selects on the sublane type."""
-    if tables is None:
-        fx_ref, fy_ref, fz_ref, ax, ay, az = rest
-        tj_ref = ti_ref = None
-    else:
-        tj_ref, ti_ref, fx_ref, fy_ref, fz_ref, ax, ay, az = rest
-        eps_t, sig6_t, cutsq_t = tables
-        T = len(eps_t)
-    g = pl.program_id(0)
-    njg = rg_ref[0, 0, 2 * GROUP]
-
-    ax[:] = jnp.zeros_like(ax)
-    ay[:] = jnp.zeros_like(ay)
-    az[:] = jnp.zeros_like(az)
-
-    xis = [xi_ref[ic, :].reshape(8, 1) for ic in range(GROUP)]
-    yis = [yi_ref[ic, :].reshape(8, 1) for ic in range(GROUP)]
-    zis = [zi_ref[ic, :].reshape(8, 1) for ic in range(GROUP)]
-    if tables is not None:
-        tis = [ti_ref[ic, :].reshape(8, 1) for ic in range(GROUP)]
-    starts = [rg_ref[0, 0, ic] for ic in range(GROUP)]
-    ends = [rg_ref[0, 0, GROUP + ic] for ic in range(GROUP)]
-
-    for s in range(nslab):  # static unroll: slice offsets are immediates
-        @pl.when(s < njg)
-        def _(s=s):
-            xj = xj_ref[0, s : s + 1, :]  # (1, 128) static slice
-            yj = yj_ref[0, s : s + 1, :]
-            zj = zj_ref[0, s : s + 1, :]
-            if tables is not None:
-                tj = tj_ref[0, s : s + 1, :]
-                # per-slab j-side table rows, one per i-type
-                eps_a, sig_a, cut_a = [], [], []
-                for a in range(T):
-                    e = jnp.full_like(tj, eps_t[a][0])
-                    s6 = jnp.full_like(tj, sig6_t[a][0])
-                    cq = jnp.full_like(tj, cutsq_t[a][0])
-                    for b in range(1, T):
-                        sel = tj == float(b)
-                        e = jnp.where(sel, eps_t[a][b], e)
-                        s6 = jnp.where(sel, sig6_t[a][b], s6)
-                        cq = jnp.where(sel, cutsq_t[a][b], cq)
-                    eps_a.append(e)
-                    sig_a.append(s6)
-                    cut_a.append(cq)
-            for ic in range(GROUP):
-                active = (s >= starts[ic]) & (s < ends[ic])
-
-                @pl.when(active)
-                def _(ic=ic):
-                    dx = xis[ic] - xj
-                    dy = yis[ic] - yj
-                    dz = zis[ic] - zj
-                    rsq = dx * dx + dy * dy + dz * dz
-                    if tables is None:
-                        eps, sig6, cutsq = epsilon, sigma6, cutforcesq
-                    else:
-                        ti = tis[ic]
-                        eps, sig6, cutsq = eps_a[0], sig_a[0], cut_a[0]
-                        for a in range(1, T):
-                            sel = ti == float(a)
-                            eps = jnp.where(sel, eps_a[a], eps)
-                            sig6 = jnp.where(sel, sig_a[a], sig6)
-                            cutsq = jnp.where(sel, cut_a[a], cutsq)
-                    mask = (rsq < cutsq) & (rsq > 0.0)
-                    rs = jnp.where(mask, rsq, 1.0)
-                    if approx_rcp:
-                        sr2 = pl.reciprocal(rs, approx=True)
-                    else:
-                        sr2 = 1.0 / rs
-                    sr6 = sr2 * sr2 * sr2 * sig6
-                    gf = jnp.where(
-                        mask, 48.0 * eps * sr6 * (sr6 - 0.5) * sr2, 0.0
-                    )
-                    r0 = ic * 8
-                    ax[r0 : r0 + 8, :] += dx * gf
-                    ay[r0 : r0 + 8, :] += dy * gf
-                    az[r0 : r0 + 8, :] += dz * gf
-
-    ones = jnp.ones((1, 128), ax.dtype)
-    dn = (((1,), (1,)), ((), ()))
-    row = g % 8
-    fx_ref[0, row, :] = jax.lax.dot_general(
-        ones, ax[:], dn, preferred_element_type=ax.dtype
-    )[0]
-    fy_ref[0, row, :] = jax.lax.dot_general(
-        ones, ay[:], dn, preferred_element_type=ay.dtype
-    )[0]
-    fz_ref[0, row, :] = jax.lax.dot_general(
-        ones, az[:], dn, preferred_element_type=az.dtype
-    )[0]
-
-
-def repack_jtiles(xc, yc, zc, jlist, tc=None):
-    """Per-step XLA repack: gather each group's j16-cluster coordinate
-    rows into dense planar slab tiles (NG, S, 128) — slab s carries
-    8 j16-clusters, cluster k of the slab on lanes [16k, 16k+16). One
-    row gather (NG*L rows of 48 floats) replaces the kernel's 8
-    dynamic-slice loads per slab. This is the TPU analogue of the
-    contiguous-aligned-load property of the reference's cluster rows
-    (src/clusterpair/force_lj.c:645-928): spend one gather per step so
-    the hot loop only ever touches dense, streaming memory.
-
-    With tc (float-encoded types), the type plane rides the same gather
-    as a 4th packed column and a tj tile array is returned too."""
-    ng, _, L = jlist.shape
-    S = L // TILE_J_STREAM
-    cj = xc.shape[0] // 2
-    planes = [xc.reshape(cj, 16), yc.reshape(cj, 16), zc.reshape(cj, 16)]
-    if tc is not None:
-        planes.append(tc.reshape(cj, 16))
-    packed = jnp.concatenate(planes, axis=1)  # (cj, 48 or 64)
-    rows = packed[jlist.reshape(ng * L)]
-    r = rows.reshape(ng, S, TILE_J_STREAM, packed.shape[1])
-    xj = r[..., 0:16].reshape(ng, S, 128)
-    yj = r[..., 16:32].reshape(ng, S, 128)
-    zj = r[..., 32:48].reshape(ng, S, 128)
-    if tc is None:
-        return xj, yj, zj
-    tj = r[..., 48:64].reshape(ng, S, 128)
-    return xj, yj, zj, tj
-
-
-TILE_J_STREAM = 8  # j16-clusters per streamed slab (= 128 lanes)
-
-
-def lj_cluster_force_pallas_stream(
-    xc, yc, zc,  # (C_total, 8) coordinate planes
-    jlist,  # (NG, 1, L) int32 — j16-cluster ids (sentinel-padded)
-    ranges,  # (NG, 1, 2*GROUP+1) int32 per-member tile windows
-    n_clusters_pad: int,
-    group: int,
-    cutforcesq: float,
-    sigma6: float,
-    epsilon: float,
-    interpret: bool = False,
-    approx_rcp: bool = False,
-    tc=None,
-    tables=None,  # (eps, sig6, cutsq) nested float tuples, static
-):
-    """Streaming-DMA cluster force kernel. Returns (fxc, fyc, fzc) each
-    (n_clusters_pad, 8)."""
-    ng, _, L = jlist.shape
-    assert group == GROUP, "pallas kernel is specialized to GROUP=16"
-    assert L % TILE_J_STREAM == 0
-    assert ng * group == n_clusters_pad
-    assert ng % 8 == 0, "n_clusters_pad must be a multiple of 8*GROUP"
-    assert xc.shape[0] % 2 == 0, "row count must pair into j16 clusters"
-    assert (tc is None) == (tables is None)
-    nslab = L // TILE_J_STREAM
-    rdim = ranges.shape[2]
-    dtype = xc.dtype
-
-    typed = tables is not None
-    if typed:
-        xj, yj, zj, tj = repack_jtiles(xc, yc, zc, jlist, tc)
-    else:
-        xj, yj, zj = repack_jtiles(xc, yc, zc, jlist)
-
-    kern = functools.partial(
-        _kernel_stream,
-        nslab=nslab,
-        cutforcesq=float(cutforcesq), sigma6=float(sigma6),
-        epsilon=float(epsilon), approx_rcp=bool(approx_rcp),
-        tables=tables,
-    )
-    jt_block = pl.BlockSpec(
-        (1, nslab, 128), lambda g: (g, 0, 0), memory_space=pltpu.VMEM
-    )
-    xi_block = pl.BlockSpec(
-        (GROUP, 8), lambda g: (g, 0), memory_space=pltpu.VMEM
-    )
-    out_block = pl.BlockSpec(
-        (1, 8, 128), lambda g: (g // 8, 0, 0), memory_space=pltpu.VMEM
-    )
-    in_specs = [
-        pl.BlockSpec((1, 1, rdim), lambda g: (g, 0, 0),
-                     memory_space=pltpu.SMEM),
-        jt_block, jt_block, jt_block,
-        xi_block, xi_block, xi_block,
-    ]
-    operands = [ranges, xj, yj, zj, xc, yc, zc]
-    if typed:
-        in_specs += [jt_block, xi_block]
-        operands += [tj, tc]
-    out = pl.pallas_call(
-        kern,
-        grid=(ng,),
-        in_specs=in_specs,
-        out_specs=[out_block, out_block, out_block],
-        out_shape=[
-            jax.ShapeDtypeStruct((ng // 8, 8, 128), dtype),
-            jax.ShapeDtypeStruct((ng // 8, 8, 128), dtype),
-            jax.ShapeDtypeStruct((ng // 8, 8, 128), dtype),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((GROUP * 8, 128), dtype),
-            pltpu.VMEM((GROUP * 8, 128), dtype),
-            pltpu.VMEM((GROUP * 8, 128), dtype),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(*operands)
-    fx, fy, fz = out
-    return (
-        fx.reshape(n_clusters_pad, 8),
-        fy.reshape(n_clusters_pad, 8),
-        fz.reshape(n_clusters_pad, 8),
-    )
+# j16 clusters the GPU kernel evaluates per loop iteration: the pair
+# tile is (share*8, JB*16), a power of two as Triton requires. JB=2 with
+# 2 warps was the fastest of jb in {2, 4, 8} x warps in {1, 2, 4, 8} on
+# the 131k headline lists (PERF.md, Findings).
+JB = 2
+NUM_WARPS = 2
 
 
 def lj_cluster_force_xla(
@@ -283,11 +50,11 @@ def lj_cluster_force_xla(
     cutforcesq, sigma6, epsilon,
     tc=None, tables=None,  # typed runs: type plane + (T,T) jnp tables
 ):
-    """Pure-XLA cluster force — correctness oracle for the Pallas kernel
-    and the CPU fallback (the reference keeps a scalar kernel for the
-    same purpose, computeForceLJRef, force_lj.c:47-165). tables =
-    (epsilon, sigma6, cutforcesq) each (T, T) arrays for EXPLICIT_TYPES
-    workloads (reference clusterpair/atom.c:78-92)."""
+    """Pure-XLA cluster force over group-shared lists (the reference
+    keeps a scalar kernel for the same purpose, computeForceLJRef,
+    force_lj.c:47-165). tables = (epsilon, sigma6, cutforcesq) each
+    (T, T) arrays for EXPLICIT_TYPES workloads (reference
+    clusterpair/atom.c:78-92)."""
     ng, _, L = jlist.shape
     jl = jlist.reshape(ng, L)
     # gather 16-atom j-cluster planes: (ng, L, 16)
@@ -330,10 +97,7 @@ def lj_cluster_force_xla(
 
 def gather_ilist_rows(xc, yc, zc, ijlist, tc=None):
     """ONE packed row gather for all coordinate planes of the exact
-    lists: measured 1.1 ms for a packed (783k rows x 48) fetch vs
-    ~4.5 ms as three per-plane gathers — the gather is ROW-ISSUE-bound
-    (~400M rows/s, byte width nearly free), so fewer+fatter rows win.
-    Returns (nic, icap, 48|64) with j16 cluster c's 16 atoms at
+    lists. Returns (nic, icap, 48|64) with j16 cluster c's 16 atoms at
     [:, :, p*16:(p+1)*16] for plane p."""
     nic, icap = ijlist.shape
     cjn = xc.shape[0] // 2
@@ -344,33 +108,6 @@ def gather_ilist_rows(xc, yc, zc, ijlist, tc=None):
     return packed[ijlist.reshape(-1)].reshape(nic, icap, len(planes) * 16)
 
 
-# exact-list coordinate fetch layout: "packed" = the 48-wide row gather
-# above + three slice-reshape relayout copies (~0.26 ms/step at 131k);
-# "fused" = one layout-fused lax.gather that emits the planar
-# (nic, 3, icap*16) layout directly (offset dims split around the index
-# batch dims). Flip after the hardware A/B (tools/r3_gab.py).
-ILIST_GATHER = "packed"
-
-
-def gather_ilist_planes(xc, yc, zc, ijlist):
-    """Layout-fused twin of gather_ilist_rows: the gather itself emits
-    (nic, 3, icap, 16) — j-planes come out kernel-ready with zero
-    relayout copies. Output dims: index batch (nic, icap) at positions
-    (0, 2), operand offset dims (3, 16) at positions (1, 3)."""
-    nic, icap = ijlist.shape
-    cjn = xc.shape[0] // 2
-    packed = jnp.concatenate(
-        [xc.reshape(cjn, 16), yc.reshape(cjn, 16), zc.reshape(cjn, 16)],
-        axis=1,
-    ).reshape(cjn, 3, 16)
-    dn = jax.lax.GatherDimensionNumbers(
-        offset_dims=(1, 3), collapsed_slice_dims=(0,),
-        start_index_map=(0,),
-    )
-    out = jax.lax.gather(packed, ijlist[:, :, None], dn, (1, 3, 16))
-    return out.reshape(nic, 3, icap * 16)
-
-
 def lj_cluster_force_xla_ilist(
     xc, yc, zc,  # (C_total, 8) coordinate planes
     ijlist,  # (NIC/share, icap) int32 — exact per-i-unit j16 ids
@@ -379,15 +116,8 @@ def lj_cluster_force_xla_ilist(
     tc=None, tables=None,  # typed runs: type plane + (T,T) jnp tables
     share: int = 1,  # i-clusters per shared list (derive_ilists share)
 ):
-    """Exact-list LJ force, fused XLA form — the CPU/parity twin of the
-    Pallas single-pass kernel (and the typed fast path).
-
-    Round-2 measurement (PERF.md): tight exact lists beat every
-    group-windowed layout because the force path is bound by padded
-    pair count and gather rows, not kernel-language choice. This XLA
-    form pays one known inefficiency the Pallas twin removes: XLA emits
-    the three component reductions as three separate fusions, each
-    re-running the gf chain (~+2.3 ms at 131k).
+    """Exact-list LJ force, fused XLA form — the CPU path, the typed
+    path, and the reference the GPU kernel is checked against.
 
     Reference anchor: per-cluster lists with the exact
     atomDistanceInRange prune (src/clusterpair/neighbor.c:176-436);
@@ -427,239 +157,94 @@ def lj_cluster_force_xla_ilist(
     return fx, fy, fz
 
 
-ILIST_UNIT = 16  # i-clusters per Pallas grid step (= 128 output lanes)
-
-
-def _kernel_ilist(
-    xj_ref, yj_ref, zj_ref, xi_ref, yi_ref, zi_ref,
-    *rest,
-    share: int, W: int, cutforcesq: float, sigma6: float,
-    epsilon: float, tables=None, approx_rcp: bool = False,
+def _kernel_ilist_gpu(
+    nji_ref, ijl_ref, x_ref, y_ref, z_ref, fx_ref, fy_ref, fz_ref,
+    *, ni: int, icap: int, jb: int, cutforcesq: float, a6: float,
+    b6: float,
 ):
-    """Single-pass exact-list force: for each i-cluster, the whole
-    (8, icap*16) pair tile is computed ONCE — distances, gf, and all
-    three component accumulations in one pass (the XLA twin re-runs the
-    chain per component, +40%). No windows, no pl.when, no dynamic
-    slices: the exact lists make every lane potentially live, so the
-    kernel is a straight-line VPU program at the padded-pair roofline.
-    Per-atom totals land in a (128,128) scratch and leave as one
-    lane-contracting ones-dot per component (sublane->lane relayout via
-    the MXU, same trick as _kernel_stream).
+    """One i-unit (ni = share*8 i-atoms) against its own j16 list.
 
-    tables (static): None for single-type, else (eps, sig6, cutsq)
-    nested float tuples indexed [ti][tj] (reference EXPLICIT_TYPES
-    per-type-pair tables, clusterpair/atom.c:78-92). Typed runs add
-    tj/ti operands; per unit the j-side table rows are assembled once
-    per i-type (T^2 cheap selects), then mixed per i-cluster by T
-    sublane selects — same scheme as _kernel_stream."""
-    if tables is None:
-        fx_ref, fy_ref, fz_ref, ax, ay, az = rest
-        tj_ref = ti_ref = None
-    else:
-        tj_ref, ti_ref, fx_ref, fy_ref, fz_ref, ax, ay, az = rest
-        eps_t, sig6_t, cutsq_t = tables
-        T = len(eps_t)
-    gb = ILIST_UNIT // share
-    nf = W // 128
-    for k in range(gb):
-        xj = xj_ref[k : k + 1, :]  # (1, W)
-        yj = yj_ref[k : k + 1, :]
-        zj = zj_ref[k : k + 1, :]
-        if tables is not None:
-            tj = tj_ref[k : k + 1, :]
-            eps_a, sig_a, cut_a = [], [], []
-            for a in range(T):
-                e = jnp.full_like(tj, eps_t[a][0])
-                s6 = jnp.full_like(tj, sig6_t[a][0])
-                cq = jnp.full_like(tj, cutsq_t[a][0])
-                for b in range(1, T):
-                    sel = tj == float(b)
-                    e = jnp.where(sel, eps_t[a][b], e)
-                    s6 = jnp.where(sel, sig6_t[a][b], s6)
-                    cq = jnp.where(sel, cutsq_t[a][b], cq)
-                eps_a.append(e)
-                sig_a.append(s6)
-                cut_a.append(cq)
-        for ic in range(share):
-            i = k * share + ic
-            xi = xi_ref[i, :].reshape(8, 1)
-            yi = yi_ref[i, :].reshape(8, 1)
-            zi = zi_ref[i, :].reshape(8, 1)
-            if tables is None:
-                eps, sig6, cutsq = epsilon, sigma6, cutforcesq
-            else:
-                ti = ti_ref[i, :].reshape(8, 1)
-                eps, sig6, cutsq = eps_a[0], sig_a[0], cut_a[0]
-                for a in range(1, T):
-                    sel = ti == float(a)
-                    eps = jnp.where(sel, eps_a[a], eps)
-                    sig6 = jnp.where(sel, sig_a[a], sig6)
-                    cutsq = jnp.where(sel, cut_a[a], cutsq)
-            dx = xi - xj
-            dy = yi - yj
-            dz = zi - zj
-            rsq = dx * dx + dy * dy + dz * dz
-            mask = (rsq < cutsq) & (rsq > 0.0)
-            if tables is None:
-                # scalar-constant fast form: no rs select (rsq==0 pads
-                # produce inf/nan that the final masked select discards
-                # — jnp.where never propagates the dead branch), and
-                # 48*eps*sig6 folds into two trace-time constants:
-                # gf = t*sr2*(A*t - B), t = sr2^3 — 2 fewer VPU ops per
-                # pair tile than the literal reference expression
-                # (force_lj.c:74-79), bit-identical for unmasked lanes
-                # up to fma contraction
-                if approx_rcp:
-                    r0a = pl.reciprocal(rsq, approx=True)
-                    sr2 = r0a * (2.0 - rsq * r0a)
-                else:
-                    sr2 = 1.0 / rsq
-                t = sr2 * sr2 * sr2
-                A = 48.0 * eps * sig6 * sig6
-                B = 24.0 * eps * sig6
-                gf = jnp.where(mask, t * sr2 * (A * t - B), 0.0)
-            else:
-                rs = jnp.where(mask, rsq, 1.0)
-                if approx_rcp:
-                    # VPU approx reciprocal + one Newton step: ~1 ulp in
-                    # f32 at 3 cheap ops vs the multi-op exact divide
-                    r0a = pl.reciprocal(rs, approx=True)
-                    sr2 = r0a * (2.0 - rs * r0a)
-                else:
-                    sr2 = 1.0 / rs
-                sr6 = sr2 * sr2 * sr2 * sig6
-                gf = jnp.where(
-                    mask, 48.0 * eps * sr6 * (sr6 - 0.5) * sr2, 0.0
-                )
-            px = dx * gf
-            py = dy * gf
-            pz = dz * gf
-            fx = px[:, 0:128]
-            fy = py[:, 0:128]
-            fz = pz[:, 0:128]
-            for f in range(1, nf):  # fold W lanes -> 128 (static slices)
-                fx = fx + px[:, f * 128 : (f + 1) * 128]
-                fy = fy + py[:, f * 128 : (f + 1) * 128]
-                fz = fz + pz[:, f * 128 : (f + 1) * 128]
-            r0 = i * 8
-            ax[r0 : r0 + 8, :] = fx
-            ay[r0 : r0 + 8, :] = fy
-            az[r0 : r0 + 8, :] = fz
+    x/y/z_ref are the flat coordinate planes: i-atom a of unit u sits at
+    u*ni + a, atom l of j16 cluster c at c*16 + l. The loop runs
+    ceil(nji / jb) times over (ni, jb*16) pair tiles; list slots past
+    nji hold the sentinel cluster, whose coordinates fail the cutoff, so
+    the tail of the last tile adds exact zeros. The per-pair force
+    components accumulate elementwise in registers and are reduced over
+    the j axis once, after the loop."""
+    u = pl.program_id(0)
+    i0 = u * ni
+    xi = x_ref[pl.ds(i0, ni)][:, None]
+    yi = y_ref[pl.ds(i0, ni)][:, None]
+    zi = z_ref[pl.ds(i0, ni)][:, None]
+    lane = jnp.arange(16, dtype=jnp.int32)[None, :]
+    n = jnp.minimum(nji_ref[u], icap)
 
-    ones = jnp.ones((1, 128), ax.dtype)
-    dn = (((1,), (1,)), ((), ()))  # contract lanes: out[0,r] = sum_l ax[r,l]
-    row = pl.program_id(0) % 8  # revolving (1,8,128) output block
-    fx_ref[0, row, :] = jax.lax.dot_general(
-        ones, ax[:], dn, preferred_element_type=ax.dtype
-    )[0]
-    fy_ref[0, row, :] = jax.lax.dot_general(
-        ones, ay[:], dn, preferred_element_type=ay.dtype
-    )[0]
-    fz_ref[0, row, :] = jax.lax.dot_general(
-        ones, az[:], dn, preferred_element_type=az.dtype
-    )[0]
+    def body(k, acc):
+        ids = ijl_ref[u, pl.ds(k * jb, jb)]  # (jb,) j16 cluster ids
+        idx = ids[:, None] * 16 + lane  # (jb, 16) flat atom rows
+        xj = x_ref[idx].reshape(1, jb * 16)
+        yj = y_ref[idx].reshape(1, jb * 16)
+        zj = z_ref[idx].reshape(1, jb * 16)
+        dx = xi - xj
+        dy = yi - yj
+        dz = zi - zj
+        rsq = dx * dx + dy * dy + dz * dz
+        mask = (rsq < cutforcesq) & (rsq > 0.0)
+        # rsq == 0 (self, sentinel pairs) gives inf here and inf (not
+        # NaN) below; the masked select discards it
+        sr2 = 1.0 / rsq
+        t = sr2 * sr2 * sr2
+        # 48*eps*sr6*(sr6 - 0.5)*sr2 with sr6 = t*sigma6, constants folded
+        gf = jnp.where(mask, t * sr2 * (a6 * t - b6), 0.0)
+        ax, ay, az = acc
+        return ax + dx * gf, ay + dy * gf, az + dz * gf
+
+    zero = jnp.zeros((ni, jb * 16), x_ref.dtype)
+    ax, ay, az = jax.lax.fori_loop(
+        0, (n + jb - 1) // jb, body, (zero, zero, zero)
+    )
+    fx_ref[pl.ds(i0, ni)] = jnp.sum(ax, axis=1)
+    fy_ref[pl.ds(i0, ni)] = jnp.sum(ay, axis=1)
+    fz_ref[pl.ds(i0, ni)] = jnp.sum(az, axis=1)
 
 
-def lj_cluster_force_ilist_pallas(
-    xc, yc, zc,  # (C_total, 8) coordinate planes (j-side reads)
+def lj_cluster_force_ilist_gpu(
+    xc, yc, zc,  # (C_total, 8) coordinate planes, sentinel pair last
     ijlist,  # (NIC/share, icap) int32 — exact per-i-unit j16 ids
+    nji,  # (NIC/share,) int32 — real list length per unit
     n_clusters_pad: int,
     cutforcesq: float, sigma6: float, epsilon: float,
     share: int = 2,
     interpret: bool = False,
-    approx_rcp: bool = False,
-    xi=None,  # optional (xi_x, xi_y, xi_z) (n_clusters_pad, 8) i-side
-    # planes — the bucketed force path passes PERMUTED i-planes while
-    # the j-gather still reads the full original planes (ghost rows)
-    tc=None, tables=None,  # typed: float type plane + (eps, sig6,
-    # cutsq) nested STATIC float tuples (reference EXPLICIT_TYPES)
 ):
-    """Exact-list LJ force, Pallas single-pass form — the TPU fast
-    path. The per-step XLA gather repacks the shared-list coordinate
-    rows into dense planar (NIC/share, icap*16) tiles; the kernel
-    streams them via BlockSpec with zero in-kernel dynamic slices and
-    computes each pair tile once. Typed runs (tc+tables) ride the type
-    plane through the same packed gather as a 4th column.
-    Returns (fxc, fyc, fzc) each (n_clusters_pad, 8)."""
+    """Exact-list LJ force, GPU kernel (Pallas through Triton). Single
+    atom type, full lists. Returns (fxc, fyc, fzc) each
+    (n_clusters_pad, 8)."""
     nu, icap = ijlist.shape
     assert nu * share == n_clusters_pad
-    assert ILIST_UNIT % share == 0
-    assert (tc is None) == (tables is None)
-    W = icap * 16
-    assert W % 128 == 0, "icap must be a multiple of 8"
-    nb = n_clusters_pad // ILIST_UNIT
-    assert nb * ILIST_UNIT == n_clusters_pad
-    assert nb % 8 == 0  # revolving 8-row output blocks
-    gb = ILIST_UNIT // share
+    assert share in (1, 2), "the i-tile (share*8 atoms) must be 8 or 16"
+    assert icap % JB == 0, "icap must be a multiple of JB"
+    assert xc.shape[0] % 2 == 0, "row count must pair into j16 clusters"
+    ni = share * 8
     dtype = xc.dtype
-    typed = tables is not None
-    if typed:
-        # plain Python floats: numpy scalars are strong-typed and drag
-        # f64 into the kernel when x64 is enabled (CPU test rig)
-        tables = tuple(
-            tuple(tuple(float(v) for v in row) for row in t)
-            for t in tables
-        )
-
-    if not typed and ILIST_GATHER == "fused":
-        pl3 = gather_ilist_planes(xc, yc, zc, ijlist)
-        xjp, yjp, zjp = pl3[:, 0], pl3[:, 1], pl3[:, 2]
-    else:
-        rows = gather_ilist_rows(xc, yc, zc, ijlist, tc)
-        xjp = rows[:, :, 0:16].reshape(nu, W)
-        yjp = rows[:, :, 16:32].reshape(nu, W)
-        zjp = rows[:, :, 32:48].reshape(nu, W)
-    if typed:
-        tjp = rows[:, :, 48:64].reshape(nu, W)
-
     kern = functools.partial(
-        _kernel_ilist,
-        share=share, W=W,
-        cutforcesq=float(cutforcesq), sigma6=float(sigma6),
-        epsilon=float(epsilon), tables=tables,
-        approx_rcp=(
-            bool(approx_rcp) and not interpret and dtype == jnp.float32
-        ),
+        _kernel_ilist_gpu, ni=ni, icap=icap, jb=JB,
+        cutforcesq=float(cutforcesq),
+        a6=48.0 * float(epsilon) * float(sigma6) ** 2,
+        b6=24.0 * float(epsilon) * float(sigma6),
     )
-    xj_block = pl.BlockSpec((gb, W), lambda b: (b, 0), memory_space=pltpu.VMEM)
-    xi_block = pl.BlockSpec(
-        (ILIST_UNIT, 8), lambda b: (b, 0), memory_space=pltpu.VMEM
-    )
-    out_block = pl.BlockSpec(
-        (1, 8, 128), lambda b: (b // 8, 0, 0), memory_space=pltpu.VMEM
-    )
-    xi_planes = (
-        xi if xi is not None
-        else (xc[:n_clusters_pad], yc[:n_clusters_pad],
-              zc[:n_clusters_pad])
-    )
-    in_specs = [xj_block, xj_block, xj_block,
-                xi_block, xi_block, xi_block]
-    operands = [xjp, yjp, zjp, *xi_planes]
-    if typed:
-        in_specs += [xj_block, xi_block]
-        operands += [tjp, tc[:n_clusters_pad]]
-    out = pl.pallas_call(
+    flat = jax.ShapeDtypeStruct((n_clusters_pad * 8,), dtype)
+    fx, fy, fz = pl.pallas_call(
         kern,
-        grid=(nb,),
-        in_specs=in_specs,
-        out_specs=[out_block, out_block, out_block],
-        out_shape=[
-            jax.ShapeDtypeStruct((nb // 8, 8, 128), dtype),
-            jax.ShapeDtypeStruct((nb // 8, 8, 128), dtype),
-            jax.ShapeDtypeStruct((nb // 8, 8, 128), dtype),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((128, 128), dtype),
-            pltpu.VMEM((128, 128), dtype),
-            pltpu.VMEM((128, 128), dtype),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
+        grid=(nu,),
+        out_shape=[flat, flat, flat],
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=NUM_WARPS, num_stages=1
         ),
         interpret=interpret,
-    )(*operands)
-    fx, fy, fz = out
+        name="lj_cluster_ilist_gpu",
+    )(nji, ijlist, xc.reshape(-1), yc.reshape(-1), zc.reshape(-1))
     return (
         fx.reshape(n_clusters_pad, 8),
         fy.reshape(n_clusters_pad, 8),
@@ -680,12 +265,8 @@ def lj_cluster_force_xla_half(
     a GHOST j are always computed i-side-only (the reaction force arrives
     through the ghost owner's own list at the reciprocal image). The
     Newton reaction forces are folded back by one row scatter-add into
-    the 16-wide j-cluster planes.
-
-    On TPU the scatter makes this SLOWER than the full kernel for the
-    default workload (full lists trade 2x flops for zero scatter —
-    SURVEY §7 risk note); it exists as the reference's config axis and is
-    measured honestly in PERF.md."""
+    the 16-wide j-cluster planes. It exists as the reference's config
+    axis; the full-list kernels are the default."""
     ng, _, L = jlist.shape
     gm = group * 8
     jl = jlist.reshape(ng, L)

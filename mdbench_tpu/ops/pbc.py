@@ -3,7 +3,7 @@
 The reference walks local atoms appending up to 7 periodic images each
 (faces/edges/corners) into border_map + PBC shift arrays
 (reference: src/verletlist/pbc.c:90-227 setupPbc), then refreshes ghost
-coordinates every step (pbc.c:42-55 updatePbc). TPU version: the 26
+coordinates every step (pbc.c:42-55 updatePbc). Device version: the 26
 candidate shifts are tested for all atoms at once; valid (atom, shift)
 pairs are compacted by a cumsum + scatter into fixed-capacity halo
 arrays. The per-step refresh is a single gather + add that fuses into
@@ -60,16 +60,15 @@ def setup_pbc(
     makes ghost 16-atom rows spatially compact, which the rowlist
     force path's per-unit row unions depend on — unsorted ghosts give
     each boundary unit one list entry PER ghost neighbor instead of
-    per 16 (measured: rcap 168 vs ~half with sorted ghosts at 131k).
+    per 16 (roughly twice the row-list width at 131k).
     """
     dtype = x.dtype
     xl = x[:nlocal]
     prd_v = jnp.asarray(prd, dtype)
     pbc_np = np.asarray(pbc, np.int32)
 
-    # Two-stage compaction (measured: the flat (nlocal*26)-candidate
-    # sort was 6.3 ms of the 23 ms verlet reneighbor at 131k — 3.4M
-    # keys to extract ~50k ghosts). Stage 1 compacts the ~28% of atoms
+    # Two-stage compaction (a flat (nlocal*26)-candidate sort would
+    # take 3.4M keys at 131k to extract ~50k ghosts). Stage 1 compacts the ~28% of atoms
     # within cutneigh of any periodic face (one nlocal single-key
     # sort); stage 2 expands ONLY those by the <=7 valid shift-subset
     # patterns (cutneigh < prd/2 means per dimension at most one of
@@ -206,10 +205,8 @@ def _setup_pbc_flat26(
     nghost = jnp.sum(flat_valid).astype(jnp.int32)
     overflow = nghost > ghost_capacity
 
-    # Packed-key sort compaction (NOT cumsum + scatter: dynamic-index
-    # scatters run at ~0.14 G elts/s on TPU — the two scatters here
-    # measured 56 ms at 131k, the sort form ~2 ms; same lesson as the
-    # cluster halo, PERF.md round 2 lesson 2). Key ranks valid
+    # Packed-key sort compaction (in place of cumsum + dynamic-index
+    # scatter, as in the cluster halo). Key ranks valid
     # candidates first — by ghost cell id when sort_grid is given
     # (spatially compact ghost rows for the rowlist force path), else
     # by flat candidate index (exactly the old atom-major order).

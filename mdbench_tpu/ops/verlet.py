@@ -2,7 +2,7 @@
 
 The reference scans, per local atom, the 3-D bin stencil and appends
 in-range atom ids to a fixed-width row, with a grow-and-retry loop on
-overflow (reference: src/verletlist/neighbor.c:186-264). TPU version:
+overflow (reference: src/verletlist/neighbor.c:186-264). Device version:
 the stencil gather is batched over chunks of atoms (lax.map keeps the
 peak intermediate at chunk x stencil x capacity), candidates are
 masked by cutneigh / self / half-list rules, and each row is compacted
@@ -50,9 +50,8 @@ def build_neighbors(
     # Per-cell packed rows [x | y | z | id(+type)], built by ONE cell-
     # content gather per rebuild: the stencil fetch below then reads
     # CELL rows, not atoms. The naive per-candidate coordinate gather
-    # x[cand] issues nlocal_pad*27*capacity single-row gathers — 142M
-    # rows = ~350 ms at 131k on TPU (row gathers are issue-bound at
-    # ~400M rows/s, PERF.md lesson 1); cell rows cost 27 per atom.
+    # x[cand] issues nlocal_pad*27*capacity single-row gathers (142M
+    # rows at 131k); cell rows cost 27 per atom.
     # Atom ids ride the same rows as exact small floats (nrows < 2^24).
     cap = cl.cells.shape[1]
     dtype = x.dtype
@@ -106,7 +105,7 @@ def build_neighbors(
         # entries land in the first nn columns, sorted by j — row order
         # differs from the reference's bin-scan order (physics is order-
         # independent) and the ascending-j rows improve gather locality.
-        # A row sort beats a (chunk x C) scatter by a wide margin on TPU.
+        # A row sort stands in for a (chunk x C) scatter.
         packed = jnp.where(mask, cand, sentinel_row)
         packed = jnp.sort(packed, axis=1)
         neigh = packed[:, :maxneighs]
@@ -131,12 +130,11 @@ def derive_rowlists(
     """Packed 16-atom-row lists per unit of 16 consecutive atoms,
     derived from the per-atom Verlet lists: unit u's list = the unique
     values of {j // 16} over its atoms' neighbor rows (plus u itself —
-    intra-unit pairs). This is the TPU-fast verlet force layout
-    (reference analogue: the gather-based SIMD kernel
+    intra-unit pairs). This is the fast verlet force layout (reference
+    analogue: the gather-based SIMD kernel
     src/verletlist/force_lj-x86.c:21-112 — the x86 answer to per-atom
-    lists is 8-wide gathers; the TPU answer is 16-atom packed-row
-    gathers, because row gathers are ISSUE-bound at ~400M rows/s and
-    per-atom 3-wide gathers cost 13M row issues at 131k = ~33 ms).
+    lists is 8-wide gathers; here it is 16-atom packed-row loads, 16x
+    fewer gathered rows than per-atom 3-wide gathers).
 
     The row lists are a SUPERSET of the per-atom lists at row
     granularity, so the force kernel's rsq < cutforce^2 mask computes
@@ -171,7 +169,7 @@ def derive_rowlists(
         ) & (s != sent16)
         cnt = jnp.sum(first, axis=1).astype(jnp.int32)
         # compact uniques to the front (packed-key sort, same scheme as
-        # derive_ilists: cumsum+scatter is ~4x slower on TPU)
+        # derive_ilists, in place of a cumsum + scatter)
         key = jnp.where(first, wpos, W + wpos)
         sk, sv = jax.lax.sort((key, s), num_keys=1, dimension=1,
                               is_stable=False)
@@ -199,25 +197,23 @@ def derive_rowlists_from_cells(
     # z window [zmin-1, zmin+zw-2]; needs per-column zspan <= zw-3
     ccap: int = 128,  # candidate rows per unit before the exact prune
     chunk: int = 512,
-    _probe_stage=None,  # tools/r3_vrows.py: early-return a stage's output
 ):
     """Packed 16-atom-row lists derived DIRECTLY from the cell table —
     the rowlist path's fast rebuild. Replaces per-atom verlet lists +
-    union (34 + 7.8 ms at 131k) with a unit-granular pipeline (~16x
-    fewer gather issues and sort rows): per cell, the distinct 16-rows
+    union with a unit-granular pipeline (~16x fewer gathered rows and
+    sort rows): per cell, the distinct 16-rows
     of its atoms with their bboxes; per 16-atom unit, the xy stencil
     of its DISTINCT COLUMNS, each stencil column fetched as ONE z-run
     covering that unit column's own z window (per-column windows stay
     small even for units that straddle a column boundary in the
-    z-fastest sort order; the earlier per-cell 3x3 z-triple fetch read
-    each stencil column up to 3x zspan times — 54 reads and 2592
-    dedup-sort lanes per unit at melt vs ~27 reads / 540 lanes here);
+    z-fastest sort order; a per-cell 3x3 z-triple fetch would read
+    each stencil column up to 3x zspan times);
     a bbox gap test vs the unit bbox; dedup; then the EXACT unit-row
     min-distance check against cutneigh. The kept set is provably identical to
     derive_rowlists' union of exact per-atom lists (a row is kept iff
     some (i in unit, j in row) pair is within cutneigh), so forces are
     identical. Reference analogue: buildNeighbor's stencil+cutoff
-    (src/verletlist/neighbor.c:186-264), at TPU row granularity.
+    (src/verletlist/neighbor.c:186-264), at 16-atom row granularity.
 
     Relies on ghosts being cell-sorted (setup_pbc sort_grid) and
     locals bin-sorted at resort so rows per cell stay few (brcap).
@@ -255,11 +251,10 @@ def derive_rowlists_from_cells(
     bovf = jnp.any(cntc > brcap)
 
     # per-candidate-row BBOXES ride the runs table (component-major,
-    # like the cluster scheme's bb_cells): the fetch is run-ISSUE-bound
-    # so 9x wider rows are nearly free, and a cheap bbox gap test then
-    # prunes candidates BEFORE the expensive exact-prune row gather —
-    # the candidate cap (and with it the nu*ccap coordinate gather and
-    # the exact-check lane count) roughly halves.
+    # like the cluster scheme's bb_cells), and a cheap bbox gap test
+    # then prunes candidates BEFORE the expensive exact-prune row
+    # gather — the candidate cap (and with it the nu*ccap coordinate
+    # gather and the exact-check width) roughly halves.
     n16r = nrows // 16
     fbig = jnp.asarray(1e30, dtype)
     xm = x[:, 0].reshape(n16r, 16)
@@ -283,16 +278,13 @@ def derive_rowlists_from_cells(
     # z-run tables for all 7 fields (row id + 6 bbox components),
     # packed COMPONENT-MAJOR into ONE row per run: row b covers cells
     # b..b+ZW-1 (z is the fastest cell-index dim, so a z window is a
-    # flat-id run), laid out [id slots | xlo slots | xhi | ...]. Row
-    # gathers are ISSUE-bound (~400M rows/s regardless of width,
-    # PERF.md lesson 1), so one 7*ZW*brcap-wide gather replaces seven
-    # same-index gathers — ~2M -> ~300k gather rows per rebuild at
-    # 131k. Component-major keeps every per-field extract a CONTIGUOUS
-    # lane slice of the gathered block (the same layout trick as the
-    # cluster scheme's bb_cells, ops/cluster.py bin_clusters); the
-    # earlier INTERLEAVED [id|bbox]-per-slot row form needed strided
-    # slices, which Mosaic/XLA relayouts at ~80x the gather's own cost
-    # (chip-measured: 56 ms vs 0.7 ms at 131k melt shapes).
+    # flat-id run), laid out [id slots | xlo slots | xhi | ...]. One
+    # 7*ZW*brcap-wide gather replaces seven same-index gathers.
+    # Component-major keeps every per-field extract a CONTIGUOUS
+    # slice of the gathered block (the same layout trick as the
+    # cluster scheme's bb_cells, ops/cluster.py bin_clusters); an
+    # INTERLEAVED [id|bbox]-per-slot row form would need strided
+    # slices and a relayout of the whole gathered block.
     nb1 = bin_rows.shape[0]
     RW = ZW * brcap  # one field's slot count per run row
 
@@ -416,8 +408,6 @@ def derive_rowlists_from_cells(
             return gall[:, :, f * RW : (f + 1) * RW].reshape(chunk, Wc)
 
         ids = fld(0).astype(jnp.int32)
-        if _probe_stage == "fetch":
-            return ids, jnp.sum(ids, axis=1)
 
         # bbox gap test vs the unit bbox (same prune the cluster
         # scheme's pair search runs, build_cluster_pairs): drops
@@ -433,14 +423,10 @@ def derive_rowlists_from_cells(
         dzg = gap(uzlo, uzhi, fld(5), fld(6))
         dsq = dxg * dxg + dyg * dyg + dzg * dzg
         cand = jnp.where(dsq <= cutsq, ids, sent16)
-        if _probe_stage == "gap":
-            return cand, jnp.sum(cand, axis=1)
 
         # 4. dedup: ascending sort puts copies adjacent and sentinel
         # last; compact first occurrences via packed-key sort
         s = jnp.sort(cand, axis=1)
-        if _probe_stage == "sort1":
-            return s, jnp.sum(s, axis=1)
         first = jnp.concatenate(
             [jnp.ones((chunk, 1), bool), s[:, 1:] != s[:, :-1]], axis=1
         ) & (s != sent16)
@@ -453,14 +439,9 @@ def derive_rowlists_from_cells(
         return cand_c, nc
 
     starts = jnp.arange(0, nu, chunk, dtype=jnp.int32)
-    if _probe_stage == "binrows":
-        return runs_pack, runs_pack[:1, 0], jnp.zeros((4,), jnp.int32), \
-            jnp.asarray(False)
     cands, ncs = jax.lax.map(chunk_fn, starts)
     cand = cands.reshape(nu, -1)
     covf = jnp.any(ncs.reshape(-1) > cand.shape[1])
-    if _probe_stage == "cand":
-        return cand, ncs.reshape(-1), jnp.zeros((4,), jnp.int32), covf
 
     # 5. exact prune + compaction (same pattern as cluster
     # derive_ilists): one packed 48-wide row gather, min over unit
@@ -473,22 +454,10 @@ def derive_rowlists_from_cells(
     def prune_fn(u0):
         us = u0 + jnp.arange(chunk, dtype=jnp.int32)
         cu = cand[us]  # (chunk, cc)
-        from mdbench_tpu.ops.pallas.lj_cluster import ILIST_GATHER
-
-        if ILIST_GATHER == "fused":
-            dn = jax.lax.GatherDimensionNumbers(
-                offset_dims=(1, 3), collapsed_slice_dims=(0,),
-                start_index_map=(0,),
-            )
-            pl3 = jax.lax.gather(
-                packed48.reshape(-1, 3, 16), cu[:, :, None], dn,
-                (1, 3, 16),
-            ).reshape(chunk, 3, 1, cc * 16)
-        else:
-            rows = packed48[cu]  # (chunk, cc, 48)
-            pl3 = jnp.transpose(
-                rows.reshape(chunk, cc, 3, 16), (0, 2, 1, 3)
-            ).reshape(chunk, 3, 1, cc * 16)
+        rows = packed48[cu]  # (chunk, cc, 48)
+        pl3 = jnp.transpose(
+            rows.reshape(chunk, cc, 3, 16), (0, 2, 1, 3)
+        ).reshape(chunk, 3, 1, cc * 16)
         xi = xi_all[us][:, :, None]
         yi = yi_all[us][:, :, None]
         zi = zi_all[us][:, :, None]
@@ -542,7 +511,6 @@ def derive_rowlists_from_ranges(
     kcap: int = 40,  # candidate row-RANGES per unit (checked)
     ccap: int = 128,  # candidate rows per unit before the exact prune
     chunk: int = 512,
-    _probe_stage=None,  # tools/r4_vranges.py: early-return a stage
 ):
     """Packed 16-atom-row lists via CONTIGUOUS ROW RANGES — the
     sort-free rebuild. Exploits the engine's sortedness invariants:
@@ -553,8 +521,7 @@ def derive_rowlists_from_ranges(
     ([starts[cell(c, z0)], starts[cell(c, z1)+1]) in atom space), so
     the whole candidate-assembly pipeline of derive_rowlists_from_cells
     (cell table + packed z-run bbox fetch + gap test + two Wc-wide
-    dedup sorts — 4.9 + 5.4 ms of the 19 ms reneighbor at 131k)
-    collapses into: two searchsorted start tables, one narrow row
+    dedup sorts) collapses into: two searchsorted start tables, one narrow row
     gather of per-column start rows, an ANALYTIC unit-bbox-vs-column
     xy gap prune (no bbox tables at all), a kcap-wide range sort +
     interval-union trim (duplicates only arise as overlapping ranges),
@@ -563,7 +530,7 @@ def derive_rowlists_from_ranges(
     derive_rowlists_from_cells' (both keep a row iff some (unit atom,
     row atom) pair is within cutneigh; both emit ascending row ids).
     Reference analogue: buildNeighbor's stencil+cutoff scan
-    (src/verletlist/neighbor.c:186-264), at TPU row-range granularity.
+    (src/verletlist/neighbor.c:186-264), at row-range granularity.
 
     Returns (rows (nu, rcap) int32, numrows, stats, overflow); stats =
     int32 (4,) observed maxima [candidate rows, distinct unit columns,
@@ -667,11 +634,10 @@ def derive_rowlists_from_ranges(
     while nu % chunk != 0 and chunk > 1:
         chunk //= 2
     # assembly chunk: the range stages are many SMALL vector ops whose
-    # per-op dispatch floor dominates at 512-unit chunks (measured: the
-    # cheap delta-select rewrite changed nothing because lane math was
-    # never the bound); their intermediates are (chunk, K) / (chunk,
-    # ccap)-sized, so one big chunk is safe — unlike the exact prune,
-    # whose (chunk, 16, ccap*16) distance block must stay small.
+    # per-op overhead dominates at 512-unit chunks; their
+    # intermediates are (chunk, K) / (chunk, ccap)-sized, so one big
+    # chunk is safe — unlike the exact prune, whose (chunk, 16,
+    # ccap*16) distance block must stay small.
     chunk_a = nu
     while nu % chunk_a != 0 and chunk_a > 1:
         chunk_a //= 2
@@ -775,8 +741,8 @@ def derive_rowlists_from_ranges(
         # materialize cand(t) = t + off(t), where off is the piecewise-
         # constant offset lo2_k - cum_k of the range covering slot t.
         # Delta form: scatter each NON-EMPTY range's offset JUMP onto
-        # its start slot via one (K, ccap) equality select, then a lane
-        # cumsum — ~3 ops per (K, ccap) lane vs ~5 for the direct
+        # its start slot via one (K, ccap) equality select, then a
+        # cumsum — ~3 ops per (K, ccap) element vs ~5 for the direct
         # two-compare window select (the big op of the assembly).
         # Empty ranges share their cum with the next range; their delta
         # is forced to 0 and the last-valid-offset prefix fill makes
@@ -815,38 +781,21 @@ def derive_rowlists_from_ranges(
 
     starts_a = jnp.arange(0, nu, chunk_a, dtype=jnp.int32)
     starts_u = jnp.arange(0, nu, chunk, dtype=jnp.int32)
-    if _probe_stage == "tables":
-        return tab, tab[:, 0], jnp.zeros((4,), jnp.int32), \
-            jnp.asarray(False)
     cands, totals, nks = jax.lax.map(chunk_fn, starts_a)
     cand = cands.reshape(nu, ccap)
     total = totals.reshape(nu)
     nk = nks.reshape(nu)
     covf = jnp.any(total > ccap)
     kovf = jnp.any(nk > kcap)
-    if _probe_stage == "cand":
-        return cand, total, jnp.zeros((4,), jnp.int32), covf
 
     # ---- exact prune + compaction (same as derive_rowlists_from_cells) --
     def prune_fn(u0):
         us = u0 + jnp.arange(chunk, dtype=jnp.int32)
         cu = cand[us]  # (chunk, ccap)
-        from mdbench_tpu.ops.pallas.lj_cluster import ILIST_GATHER
-
-        if ILIST_GATHER == "fused":
-            dn = jax.lax.GatherDimensionNumbers(
-                offset_dims=(1, 3), collapsed_slice_dims=(0,),
-                start_index_map=(0,),
-            )
-            pl3 = jax.lax.gather(
-                packed48.reshape(-1, 3, 16), cu[:, :, None], dn,
-                (1, 3, 16),
-            ).reshape(chunk, 3, 1, ccap * 16)
-        else:
-            rows = packed48[cu]  # (chunk, ccap, 48)
-            pl3 = jnp.transpose(
-                rows.reshape(chunk, ccap, 3, 16), (0, 2, 1, 3)
-            ).reshape(chunk, 3, 1, ccap * 16)
+        rows = packed48[cu]  # (chunk, ccap, 48)
+        pl3 = jnp.transpose(
+            rows.reshape(chunk, ccap, 3, 16), (0, 2, 1, 3)
+        ).reshape(chunk, 3, 1, ccap * 16)
         xi = xi16[us][:, :, None]
         yi = yi16[us][:, :, None]
         zi = zi16[us][:, :, None]
@@ -885,33 +834,28 @@ def derive_rowlists_from_ranges(
 def compute_force_lj_rowlist(
     x: jnp.ndarray,  # (nrows, 3) — locals, ghosts, sentinel tail
     rows: jnp.ndarray,  # (nlocal_pad/16, rcap) int32 row ids
+    numrows: jnp.ndarray,  # (nlocal_pad/16,) int32 real list lengths
     nlocal_pad: int,
     cutforcesq: float,
     sigma6: float,
     epsilon: float,
-    backend: str = "pallas",  # "pallas" (TPU) | "xla" (CPU twin)
-    approx_rcp: bool = False,
+    kernel: str = "rowlist",  # "rowlist_pl" (GPU kernel) | "rowlist"
     interpret: bool = False,
-    buckets=None,  # (sizes, caps) static plan; with maps below
-    brows=None,  # (total_units, rcap) numrows-sorted permuted lists
-    bcrows=None,  # (total_units*2,) permuted xi 8-row ids
-    binv=None,  # (nlocal_pad/8,) output inverse map
 ) -> jnp.ndarray:
-    """LJ force over packed row lists — the verlet scheme's TPU fast
-    path. A 16-atom row in ATOM ORDER plays the role the cluster
-    scheme's j16 plays: one (16 i-atoms x rcap*16 j-atoms) pair tile
-    per unit, every operand pre-gathered planar by one fat row gather,
-    zero in-kernel dynamic slices. Because the row lists cover every
-    per-atom list entry at row granularity, the kernel's
+    """LJ force over packed row lists — the verlet scheme's fast path.
+    A 16-atom row in ATOM ORDER plays the role the cluster scheme's j16
+    plays: one (16 i-atoms x 16 j-atoms) pair tile per list entry, run
+    by the same exact-list kernels as the cluster scheme (share=2: a
+    unit's 16 atoms are two 8-atom i-clusters). Because the row lists
+    cover every per-atom list entry at row granularity, the kernel's
     rsq < cutforce^2 mask computes the same pair set as the planar
     per-atom kernel (self pairs excluded by rsq > 0, sentinel padding
     by the cutoff). Reference analogue: the dedicated verlet SIMD
-    kernel src/verletlist/force_lj-x86.c:21-112 — same role (a fast
-    full-neighbor kernel for the verlet scheme), TPU shape.
+    kernel src/verletlist/force_lj-x86.c:21-112.
 
     Returns (nlocal_pad, 3) like compute_force_lj_full."""
     from mdbench_tpu.ops.pallas.lj_cluster import (
-        lj_cluster_force_ilist_pallas,
+        lj_cluster_force_ilist_gpu,
         lj_cluster_force_xla_ilist,
     )
 
@@ -920,53 +864,10 @@ def compute_force_lj_rowlist(
     yc = x[:, 1].reshape(-1, 8)
     zc = x[:, 2].reshape(-1, 8)
     n_clusters_pad = nlocal_pad // 8
-    if buckets is not None and brows is not None and backend == "pallas":
-        # capacity-bucketed form (same scheme as the cluster engine's
-        # _force_buckets): units run numrows-sorted through one
-        # capacity-matched kernel per bucket, outputs gather back
-        # through the inverse map. The kernel pads every unit to its
-        # bucket's cap instead of the global rcap (~2x fewer padded
-        # pairs AND gather rows at 131k: numrows mean 32, flat cap 72+)
-        sizes, caps = buckets
-        # packed 24-wide permutation gathers on both ends: row gathers
-        # are issue-bound and narrow (n, 8) rows gather poorly — three
-        # separate binv gathers measured 0.50 ms/step at 131k (r4 probe)
-        xiP3 = jnp.concatenate([xc, yc, zc], axis=1)[bcrows]
-        xiP = xiP3[:, 0:8]
-        yiP = xiP3[:, 8:16]
-        ziP = xiP3[:, 16:24]
-        fxs, fys, fzs = [], [], []
-        off = 0
-        for n_k, c_k in zip(sizes, caps):
-            if c_k == 0:
-                # structurally-empty units (zero_tier): no kernel
-                z = jnp.zeros((n_k * 2, 8), xc.dtype)
-                fxs.append(z)
-                fys.append(z)
-                fzs.append(z)
-                off += n_k
-                continue
-            r0, r1 = off * 2, (off + n_k) * 2
-            fxk, fyk, fzk = lj_cluster_force_ilist_pallas(
-                xc, yc, zc, brows[off : off + n_k, :c_k], n_k * 2,
-                cutforcesq, sigma6, epsilon, share=2,
-                approx_rcp=approx_rcp, interpret=interpret,
-                xi=(xiP[r0:r1], yiP[r0:r1], ziP[r0:r1]),
-            )
-            fxs.append(fxk)
-            fys.append(fyk)
-            fzs.append(fzk)
-            off += n_k
-        f3 = jnp.concatenate(
-            [jnp.concatenate(fxs, axis=0), jnp.concatenate(fys, axis=0),
-             jnp.concatenate(fzs, axis=0)],
-            axis=1,
-        )[binv]
-        fx, fy, fz = f3[:, 0:8], f3[:, 8:16], f3[:, 16:24]
-    elif backend == "pallas":
-        fx, fy, fz = lj_cluster_force_ilist_pallas(
-            xc, yc, zc, rows, n_clusters_pad, cutforcesq, sigma6,
-            epsilon, share=2, approx_rcp=approx_rcp, interpret=interpret,
+    if kernel == "rowlist_pl":
+        fx, fy, fz = lj_cluster_force_ilist_gpu(
+            xc, yc, zc, rows, numrows, n_clusters_pad, cutforcesq, sigma6,
+            epsilon, share=2, interpret=interpret,
         )
     else:
         fx, fy, fz = lj_cluster_force_xla_ilist(

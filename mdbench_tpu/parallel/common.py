@@ -1,6 +1,6 @@
 """Shared helpers for the domain-decomposition engines (1-D slabs,
 2-D pencils, 3-D bricks): the per-device traced-nloc spatial resort,
-the rowlist row-layout alignment rules, and the melted-probe cap
+the rowlist row-layout rounding, and the melted-probe cap
 calibration. One definition so the growth factors, alignment
 constants, and calibration margins cannot drift between engines."""
 
@@ -30,41 +30,24 @@ def resort_by_cell(grid, x, v, nloc, acap):
     return x.at[:acap].set(xl[perm]), v[perm]
 
 
-def align_acap(rowlist: bool, backend: str, acap: int) -> int:
-    """Rowlist local-region alignment: the Pallas kernel's revolving
-    output blocks need acap % 1024 == 0; the fused-XLA twin only needs
-    whole 16-atom rows."""
-    if not rowlist:
-        return acap
-    align = 1024 if backend == "pallas" else 16
-    return (acap + align - 1) // align * align
-
-
 def round16(cap: int) -> int:
-    """Ghost blocks round up to whole 16-atom rows on the rowlist path
-    so block boundaries never split a row."""
+    """Local, ghost and border blocks round up to whole 16-atom rows on
+    the rowlist path so block boundaries never split a row."""
     return (cap + 15) // 16 * 16
 
 
-def apply_rowlist_caps(eng, nr, st, want_buckets: bool = False):
+def apply_rowlist_caps(eng, nr, st) -> None:
     """Set an engine's rowlist build capacities from OBSERVED melted
     per-device maxima (the one-shot melted-probe calibration, hoisted so
-    the 1-D/2-D/3-D engines share one set of margins — VERDICT r4 item
-    5; single-chip original: engine.py melt calibration).
+    the 1-D/2-D/3-D engines share one set of margins; single-chip
+    original: engine.py melt calibration).
 
     nr: (ndev, units) observed numrows per 16-atom unit row;
     st: (ndev, 4) build stats from derive_rowlists_from_cells —
         [max post-bbox candidates, max unit columns, max z-span,
          max rows/cell].
 
-    Sets eng.rcap / ccap / ucl / zw / ubr in place. When want_buckets
-    (Pallas backend with a bucketed force path), also plans STATIC
-    capacity buckets from the per-rank worst case across devices:
-    sorting each device's numrows and taking the rank-wise max yields a
-    distribution that dominates every device, so one static plan holds
-    mesh-wide (shard_map needs identical shapes on all devices);
-    membership stays argsort-adaptive per device per rebuild. Returns
-    the bucket plan (or None)."""
+    Sets eng.rcap / ccap / ucl / zw / ubr in place."""
     nr = np.asarray(nr)
     st = np.asarray(st)
     eng.rcap = max((int(nr.max() * 1.3) + 7) // 8 * 8, 16)
@@ -72,20 +55,12 @@ def apply_rowlist_caps(eng, nr, st, want_buckets: bool = False):
     eng.ucl = max(int(st[:, 1].max()) + 1, 2)
     eng.zw = max(int(st[:, 2].max()) + 3, 3)
     eng.ubr = max(int(st[:, 3].max()) + 2, 4)
-    if not want_buckets:
-        return None
-    from mdbench_tpu.ops.cluster import plan_capacity_buckets
-
-    nr_sorted = np.sort(nr, axis=1)
-    return plan_capacity_buckets(
-        nr_sorted.max(axis=0), eng.rcap, 2, margin=4, zero_tier=True
-    )
 
 
 def calibrated_block_cap(observed_max: int, floor: int) -> int:
     """Ghost/export block capacity from an observed melted maximum:
     1.25x margin, whole 16-atom rows (update_pbc and the border
     ppermutes gather/write the FULL padded block every step — the
-    single-chip ghost-cap lesson, 1.83 -> 0.33 ms/step at 131k;
-    overflow grow-retry backstops a larger drift)."""
+    single-chip ghost-cap lesson; overflow grow-retry backstops a
+    larger drift)."""
     return max((int(observed_max * 1.25) + 15) // 16 * 16, floor)

@@ -2,12 +2,11 @@
 
 The reference's mutable `Atom` struct (src/verletlist/atom.h:12-39,
 src/clusterpair/atom.h:19-54) becomes immutable fixed-capacity pytrees:
-SoA `(N, 3)` arrays (AoS is meaningless on TPU — the lane dimension wants
-contiguous same-coordinate data), with local atoms first and ghost slots
+SoA `(N, 3)` arrays, with local atoms first and ghost slots
 appended, all shapes static under jit. Data-dependent counts (ghosts,
 neighbors) live as device scalars plus padding sentinels; capacity
 overflows raise flags that the host handles by growing and retracing
-(the TPU analogue of the reference's realloc loops, atom.c:590-618,
+(the device analogue of the reference's realloc loops, atom.c:590-618,
 neighbor.c:247-262).
 """
 
@@ -79,23 +78,17 @@ class NeighborList(NamedTuple):
     `neighbors[i, k]` indexes into the System.x rows (locals + ghosts);
     padding entries point at the sentinel row (index = x.shape[0] - 1)
     whose coordinates are +1e30, so padded lanes fail the cutoff test
-    naturally — the TPU analogue of the reference's `dummy_cj` cluster.
+    naturally — the analogue of the reference's `dummy_cj` cluster.
     """
 
     neighbors: jnp.ndarray  # (nlocal_pad, maxneighs) int32
     numneigh: jnp.ndarray  # (nlocal_pad,) int32
     overflow: jnp.ndarray  # () bool — maxneighs exceeded
-    # TPU fast-path row lists (kernel="rowlist"/"auto"-on-TPU, LJ full
-    # lists): packed 16-atom-row ids per 16-atom i-unit, derived from
-    # the per-atom lists (ops/verlet.derive_rowlists). None on the
-    # planar-XLA path.
+    # fast-path row lists (kernel="rowlist"/"rowlist_pl", LJ full
+    # lists): packed 16-atom-row ids per 16-atom i-unit (ops/verlet
+    # derive_rowlists*). None on the planar-XLA path.
     rows: jnp.ndarray | None = None  # (nlocal_pad/16, rcap) int32
     numrows: jnp.ndarray | None = None  # (nlocal_pad/16,) int32
-    # capacity-bucketed force maps (numrows-sorted units, one
-    # capacity-matched kernel per bucket; ops/cluster.bucket_maps_core)
-    brows: jnp.ndarray | None = None  # (total_units, rcap) permuted
-    bcrows: jnp.ndarray | None = None  # (total_units*2,) xi 8-row ids
-    binv: jnp.ndarray | None = None  # (nlocal_pad/8,) output inverse
     ncmax: jnp.ndarray | None = None  # () observed post-bbox candidate
     # maximum (drives ccap calibration)
 

@@ -1,7 +1,7 @@
 """Workload statistics (reference COMPUTE_STATS, src/verletlist/stats.c).
 
 The reference accumulates per-iteration counters inside the kernels
-(addStat). On TPU that would poison the hot loop, so the same quantities
+(addStat). On a device that would poison the hot loop, so the same quantities
 are computed analytically from the neighbor lists at reneighbor
 boundaries and scaled by the steps each list was live — the totals are
 identical because lists are immutable between rebuilds.
@@ -13,7 +13,11 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-VECTOR_WIDTH = 8  # TPU VPU sublanes per f32 tile; SIMD-iteration analogue
+from mdbench_tpu.ops.pallas.lj_cluster import JB
+
+# j-atoms per loop iteration of the GPU exact-list kernel (JB j16
+# clusters); the SIMD-iteration analogue of the reference's counters
+VECTOR_WIDTH = JB * 16
 
 
 @dataclass
@@ -42,7 +46,7 @@ def compute_cluster_stats(
     cutforcesq: float,
     cutneighsq: float,
     chunk: int = 16,
-    buckets=None,  # engine capacity buckets ((sizes), (caps)) if active
+    kernel: str = "ilist",  # the engine's resolved kernel
 ) -> dict:
     """EXACT cluster-scheme counters (reference clusterpair/stats.c:
     26-85): processed cluster pairs, real atom-pair interactions, and
@@ -56,7 +60,7 @@ def compute_cluster_stats(
     if pairs.ijlist is not None:
         return _compute_ilist_stats(
             clusters, pairs, n_clusters_pad, cutforcesq, cutneighsq,
-            buckets=buckets,
+            kernel=kernel,
         )
 
     ng, _, L = pairs.jlist.shape
@@ -131,7 +135,7 @@ def compute_cluster_stats(
 def _compute_ilist_stats(
     clusters, pairs, n_clusters_pad: int,
     cutforcesq: float, cutneighsq: float, chunk: int = 256,
-    buckets=None,
+    kernel: str = "ilist",
 ) -> dict:
     """Exact counters for the exact-list (kernel=ilist*) path: the
     kernel processes every (i-unit row, listed j16) pair tile, so the
@@ -186,17 +190,14 @@ def _compute_ilist_stats(
     starts = jnp.arange(0, nupad, chunk, dtype=jnp.int32)
     pf, pn, ci = jax.lax.map(jax.jit(chunk_fn), starts)
     cl_proc = int(nji.sum())
-    # padded-pair accounting follows what the kernel EXECUTES: with
-    # capacity buckets active each bucket runs at its own cap, not the
-    # flat icap (the whole point of the bucketed path)
-    if buckets is not None and pairs.bijlist is not None:
-        sizes, caps = buckets
-        padded = sum(
-            n_k * share * 8 * c_k * 16 for n_k, c_k in zip(sizes, caps)
-        )
+    # padded-pair accounting follows what the kernel EXECUTES: the GPU
+    # kernel loops over each unit's own list in JB-cluster tiles, the
+    # XLA twin evaluates the full icap width of every unit
+    if kernel == "ilist_pl":
+        padded = int(((nji + JB - 1) // JB).sum()) * JB * 16 * share * 8
     else:
         padded = nu * share * 8 * icap * 16
-    tiles = padded // (8 * 128)  # (8-row, 128-lane)-tile equivalents
+    tiles = padded // 1024  # 1024-pair tiles, as on the group-list path
     return dict(
         pairs_within_cutforce=int(np.asarray(pf.sum())),
         pairs_within_cutneigh=int(np.asarray(pn.sum())),

@@ -1,7 +1,7 @@
 """Tracing / profiling hooks (reference: src/verletlist/tracing.{c,h},
 likwid-marker.h — SURVEY §5.1).
 
-Three mechanisms, mapped TPU-native:
+Three mechanisms, mapped onto JAX:
 
 - LIKWID marker regions -> `region(name)`: jax.profiler.TraceAnnotation
   scopes that show up as named spans in an xprof/tensorboard trace.

@@ -1,6 +1,6 @@
 // Native data loader for tpu-md-bench (reference counterpart:
 // src/verletlist/atom.c readAtom_* — the reference's reader layer is
-// native C; this is the TPU build's native equivalent, bound to Python
+// native C; this is this build's native equivalent, bound to Python
 // via ctypes from mdbench_tpu/io/native.py).
 //
 // Parses LAMMPS dump (.dmp) and the native restart (.in) formats into

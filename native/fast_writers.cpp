@@ -1,6 +1,6 @@
 // Native output writers for tpu-md-bench (reference counterparts:
 // src/verletlist/vtk.c and tracing.{c,h} — both native C in the
-// reference; these are the TPU build's native equivalents, bound to
+// reference; these are this build's native equivalents, bound to
 // Python via ctypes from mdbench_tpu/io/native.py).
 //
 // The VTK / tracer formats are line-per-atom text: the pure-Python

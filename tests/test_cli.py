@@ -24,10 +24,10 @@ def test_parse_args_reference_flags():
 
 
 def test_parse_args_tpu_axes():
-    p = parse_args("--scheme cluster --precision sp --kernel pallas".split())
+    p = parse_args("--scheme cluster --precision sp --kernel ilist_pl".split())
     assert p.scheme == "cluster"
     assert p.precision == "sp"
-    assert p.kernel == "pallas"
+    assert p.kernel == "ilist_pl"
 
 
 @pytest.mark.slow

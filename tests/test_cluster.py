@@ -22,20 +22,6 @@ def test_cluster_first_force_matches_dense():
     np.testing.assert_allclose(f, np.asarray(f_ref), rtol=1e-9, atol=1e-9)
 
 
-@pytest.mark.parametrize("kern", ["pallas"])
-def test_cluster_pallas_interpret_matches_xla(kern):
-    """Pallas kernels in interpreter mode == XLA oracle (small box).
-    'pallas' is the streaming kernel; 'pallas_ds' the dynamic-slice
-    round-1 twin."""
-    p = Params(nx=3, ny=3, nz=3, kernel=kern)
-    sim = ClusterSimulation(p)
-    f_pallas = sim.first_force_atoms()
-    p2 = Params(nx=3, ny=3, nz=3, kernel="xla")
-    sim2 = ClusterSimulation(p2)
-    f_xla = sim2.first_force_atoms()
-    np.testing.assert_allclose(f_pallas, f_xla, rtol=1e-6, atol=1e-7)
-
-
 def test_cluster_short_run_matches_verlet_engine():
     """20 steps of the cluster engine == 20 steps of the verlet engine."""
     from mdbench_tpu.engine import Simulation
@@ -53,8 +39,7 @@ def test_cluster_short_run_matches_verlet_engine():
 def test_cluster_multitype_matches_dense_and_pallas():
     """EXPLICIT_TYPES in the cluster scheme (reference clusterpair/
     atom.c:78-92): two atom types with NON-uniform pair tables, checked
-    against the typed dense oracle, and the typed streaming Pallas kernel
-    against the typed XLA kernel."""
+    against the typed dense oracle."""
     from mdbench_tpu.ops.dense import lj_force_dense_typed
     from mdbench_tpu.state import TypeTables
 
@@ -80,11 +65,6 @@ def test_cluster_multitype_matches_dense_and_pallas():
     )
     np.testing.assert_allclose(f, np.asarray(f_ref), rtol=1e-9, atol=1e-9)
 
-    p2 = Params(nx=3, ny=3, nz=3, ntypes=2, kernel="pallas")
-    sim2 = ClusterSimulation(p2, x=x, v=v, types=types, tables=tables)
-    f2 = sim2.first_force_atoms()
-    np.testing.assert_allclose(f2, f, rtol=1e-6, atol=1e-7)
-
 
 def test_cluster_two_atomtype_dmp_matches_verlet():
     """The two-atomtype copper .dmp (reference data/) runs through the
@@ -103,11 +83,11 @@ def test_cluster_two_atomtype_dmp_matches_verlet():
 
 
 def test_cluster_prune_pass_preserves_trajectory():
-    """pruneNeighbor analogue: the in-interval range refresh must not
+    """pruneNeighbor analogue: the in-interval list refresh must not
     change physics (it may only drop pairs beyond cutneigh). Uses the
-    pallas kernel because only it consumes the tile windows."""
+    exact-list kernel, whose lists the prune re-derives."""
     base = dict(nx=3, ny=3, nz=3, ntimes=8, reneigh_every=8,
-                kernel="pallas")
+                kernel="ilist")
     out_noprune = ClusterSimulation(Params(**base, prune_every=0)).run()
     out_prune = ClusterSimulation(Params(**base, prune_every=3)).run()
     np.testing.assert_allclose(

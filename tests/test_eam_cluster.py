@@ -1,7 +1,6 @@
 """Cluster-scheme EAM: parity vs the verlet engine (same polynomial
 evaluation, different data structure — any disagreement is a list or
-summation bug, so the DP tolerance is machine-epsilon-tight) and the
-Pallas(interpret) vs fused-XLA kernel twins. The reference's
+summation bug, so the DP tolerance is machine-epsilon-tight). The reference's
 clusterpair EAM is a dead stub (force_eam.c:20-37); the verlet spline
 path remains the reference-parity oracle (test_golden.py)."""
 
@@ -31,19 +30,11 @@ def test_cluster_eam_matches_verlet_poly():
     np.testing.assert_allclose(tc, tv, rtol=1e-12)
 
 
-def test_cluster_eam_pallas_interpret_matches_xla():
-    t1 = _temps(ClusterSimulation(Params(scheme="cluster",
-                                         kernel="ilist", **KW)))
-    t2 = _temps(ClusterSimulation(Params(scheme="cluster",
-                                         kernel="ilist_pl", **KW)))
-    np.testing.assert_allclose(t2, t1, rtol=1e-12)
-
-
 def test_cluster_eam_rejects_unsupported_axes():
     with pytest.raises(ValueError):
         ClusterSimulation(Params(scheme="cluster", half_neigh=1, **KW))
     with pytest.raises(ValueError):
-        ClusterSimulation(Params(scheme="cluster", kernel="pallas", **KW))
+        ClusterSimulation(Params(scheme="cluster", kernel="xla", **KW))
 
 
 def test_cluster_domain_eam_matches_single_chip():
@@ -68,51 +59,6 @@ def test_cluster_domain_eam_matches_single_chip():
     np.testing.assert_allclose(
         np.asarray(out.temps), ts, rtol=1e-10
     )
-
-
-def test_cluster_eam_bucketed_matches_flat():
-    """Capacity-bucketed EAM passes (nji-sorted units through
-    capacity-matched kernels, both row gathers tightened) produce
-    bit-identical forces to the flat-capacity path."""
-    import jax
-
-    from mdbench_tpu.ops.cluster import attach_bucket_maps
-    from mdbench_tpu.ops.pallas.eam_cluster import (
-        eam_cluster_force_pallas,
-    )
-
-    p = Params(scheme="cluster", kernel="ilist_pl",
-               **dict(KW, nx=6, ny=6, nz=4))
-    sim = ClusterSimulation(p)
-    st = sim.initial_state()
-    jax.block_until_ready(st)
-    nu = sim.n_clusters_pad // sim.ishare
-    nji = np.asarray(st.pairs.nji)
-    # synthetic plan (the real planner gates on nu >= 4096): two
-    # buckets at the granularity the kernel needs (n_k*share % 128);
-    # the first bucket's cap covers exactly its gran smallest lists
-    gran = 128 // sim.ishare
-    assert nu >= 2 * gran
-    c1 = max(8, (int(np.sort(nji)[gran - 1]) + 7) // 8 * 8)
-    sizes = (gran, ((nu - gran + gran - 1) // gran) * gran)
-    caps = (min(c1, sim.icap), sim.icap)
-    pairs_b = attach_bucket_maps(
-        st.pairs, sim.n_clusters_pad, sim.ishare,
-        st.clusters.xc.shape[0], sizes, caps,
-    )
-    assert not bool(pairs_b.iovf)
-    args = (st.clusters.xc, st.clusters.yc, st.clusters.zc,
-            st.pairs.ijlist, st.halo.border_map, sim.n_clusters_pad,
-            p.cutforce**2, sim.eam_dev, sim.eam_poly)
-    kw = dict(share=sim.ishare, interpret=True)
-    fx0, fy0, fz0, _ = eam_cluster_force_pallas(*args, **kw)
-    fx1, fy1, fz1, _ = eam_cluster_force_pallas(
-        *args, **kw, buckets=(sizes, caps),
-        bpairs=(pairs_b.bijlist, pairs_b.bcrows, pairs_b.binv),
-    )
-    np.testing.assert_array_equal(np.asarray(fx0), np.asarray(fx1))
-    np.testing.assert_array_equal(np.asarray(fy0), np.asarray(fy1))
-    np.testing.assert_array_equal(np.asarray(fz0), np.asarray(fz1))
 
 
 @pytest.mark.slow

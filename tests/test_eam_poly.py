@@ -1,7 +1,7 @@
 """EAM polynomial fast axis (eam_eval="poly"): fit accuracy vs the
 reference spline, force-field equivalence, and trajectory agreement
-with the spline path (the gather-free per-pair evaluation is the TPU
-fast axis; the spline path stays the DP parity oracle)."""
+with the spline path (the gather-free per-pair evaluation is the SP
+accelerator axis; the spline path stays the DP parity oracle)."""
 
 import numpy as np
 import pytest

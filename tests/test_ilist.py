@@ -1,5 +1,5 @@
-"""Exact per-i-cluster list path (kernel="ilist" — the TPU fast path and
-the "auto" default). Parity against the group-list XLA oracle, the exact
+"""Exact per-i-cluster list path (kernel="ilist", the XLA twin of the
+GPU kernel and the CPU "auto" default). Parity against the group-list XLA oracle, the exact
 prune's correctness guarantees, capacity calibration/growth, and the
 multi-type axis."""
 
@@ -98,14 +98,12 @@ def test_ilist_multitype_parity():
     cutsq = np.full((2, 2), p.cutforce**2)
     tables = (eps, sig6, cutsq)
     out = {}
-    for kern in ("ilist", "xla", "ilist_pl"):
-        pk = Params(precision="dp" if kern != "ilist_pl" else "sp",
-                    nx=4, ny=4, nz=4, ntypes=2, kernel=kern)
+    for kern in ("ilist", "xla"):
+        pk = Params(precision="dp", nx=4, ny=4, nz=4, ntypes=2,
+                    kernel=kern)
         sim = ClusterSimulation(pk, types=types, tables=tables)
         out[kern] = sim.first_force_atoms()
     assert np.abs(out["ilist"] - out["xla"]).max() < 1e-10
-    # typed Pallas twin (interpret mode, SP)
-    assert np.abs(out["ilist_pl"] - out["ilist"]).max() < 1e-4
 
 
 def test_ilist_capacity_growth_on_overflow():
@@ -138,21 +136,3 @@ def test_auto_resolves_to_ilist():
     assert st.pairs.ijlist is not None
     assert st.pairs.nji is not None
 
-
-def test_derive_fused_gather_matches_packed(monkeypatch):
-    """derive_ilists with the layout-fused candidate gather produces
-    identical exact lists."""
-    from mdbench_tpu.config import Params
-    from mdbench_tpu.engine_cluster import ClusterSimulation
-    from mdbench_tpu.ops.pallas import lj_cluster as ljc
-
-    p = Params(nx=6, ny=6, nz=6, kernel="ilist")
-    st_a = ClusterSimulation(p).initial_state()
-    monkeypatch.setattr(ljc, "ILIST_GATHER", "fused")
-    st_b = ClusterSimulation(p).initial_state()
-    np.testing.assert_array_equal(
-        np.asarray(st_b.pairs.ijlist), np.asarray(st_a.pairs.ijlist)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(st_b.pairs.nji), np.asarray(st_a.pairs.nji)
-    )

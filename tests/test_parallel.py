@@ -120,11 +120,11 @@ def test_domain_overflow_recovery():
     np.testing.assert_allclose(out.temps, out_s.temps, rtol=1e-8)
 
 
-def test_capacity_plan_10m_atoms_v5e8():
-    """BASELINE.md multi-chip row: the 10M-atom config must PLAN within
-    v5e HBM (16 GB/chip) on an 8-chip mesh. (Execution at that scale
-    needs real chips; correctness of the engine is covered by the
-    parity tests above and the scaled smoke below.)"""
+def test_capacity_plan_10m_atoms_8dev():
+    """The 10M-atom config must PLAN well within one device's memory on
+    an 8-device mesh. (Execution at that scale needs real cards;
+    correctness of the engine is covered by the parity tests above and
+    the scaled smoke below.)"""
     from mdbench_tpu.parallel.verlet_domain import plan_capacities
 
     # 10.1M atoms: 4 * 136 * 136 * 136 FCC cells

@@ -139,7 +139,7 @@ def test_reneighbor_preserves_energy_150_steps():
 
 
 def test_rowlist_force_matches_planar():
-    """kernel="rowlist" (the verlet TPU fast path: packed 16-atom-row
+    """kernel="rowlist" (the verlet fast path: packed 16-atom-row
     lists + exact-list kernel; XLA twin on CPU) computes the same
     forces as the planar per-atom kernel — the row lists are a
     row-granular superset, so the cutforce mask selects the identical
@@ -256,47 +256,6 @@ def test_rowlist_short_trajectory_matches_planar():
     out_a = Simulation(Params(**base, kernel="xla")).run()
     out_b = Simulation(Params(**base, kernel="rowlist")).run()
     np.testing.assert_allclose(out_b.temps, out_a.temps, rtol=1e-9)
-
-
-def test_rowlist_bucketed_force_matches_flat():
-    """Capacity-bucketed rowlist force (numrows-sorted units, one
-    capacity-matched kernel per bucket + inverse gather) == the flat
-    rcap kernel, bit-for-bit (same pair tiles, just permuted)."""
-    from mdbench_tpu.ops.cluster import bucket_maps_core
-    from mdbench_tpu.ops.verlet import compute_force_lj_rowlist
-
-    p = Params(nx=8, ny=8, nz=8, kernel="rowlist")
-    sim = Simulation(p)
-    st = sim.initial_state()
-    assert not bool(st.overflow)
-    x = jnp.asarray(st.x, jnp.float32)  # Pallas interpret path is f32
-    rows, numrows = st.nlist.rows, st.nlist.numrows
-    npad = sim.caps.nlocal_pad
-    cutsq = float(sim.cutforcesq)
-
-    f_flat = compute_force_lj_rowlist(
-        x, rows, npad, cutsq, p.sigma6, p.epsilon,
-        backend="pallas", interpret=True,
-    )
-
-    nu = rows.shape[0]
-    assert nu % 128 == 0
-    srt = np.sort(np.asarray(numrows))
-    c0 = max(8, (int(srt[nu // 2 - 1]) + 7) // 8 * 8)
-    sizes = (nu // 2, nu // 2)
-    caps_b = (c0, sim.rcap)
-    brows, bcrows, binv, bovf = bucket_maps_core(
-        rows, numrows, npad // 8, 2, x.shape[0] // 8, sizes, caps_b
-    )
-    assert not bool(bovf)
-    f_b = compute_force_lj_rowlist(
-        x, rows, npad, cutsq, p.sigma6, p.epsilon,
-        backend="pallas", interpret=True,
-        buckets=(sizes, caps_b), brows=brows, bcrows=bcrows, binv=binv,
-    )
-    np.testing.assert_allclose(
-        np.asarray(f_b), np.asarray(f_flat), rtol=1e-6, atol=1e-6
-    )
 
 
 def test_cell_table_matches_sequential_oracle():
